@@ -1,0 +1,123 @@
+"""The PyTorch port stands alone: importing it pulls in no JAX, nothing of
+hupr_tpu and no PyYAML; its config resolves the shipped YAMLs to the same
+values as hupr_tpu.config; its entry points refuse to fall back to the CPU."""
+
+import dataclasses
+import glob
+import os
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from hupr_tpu import config as jax_config
+from hupr_tpu_torch import config as port_config
+
+torch.set_num_threads(1)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CONFIGS = sorted(glob.glob(os.path.join(REPO, "config", "*.yaml")))
+
+_IMPORT_ALL = """
+import importlib, pkgutil, sys
+import hupr_tpu_torch
+for mod in pkgutil.walk_packages(hupr_tpu_torch.__path__, "hupr_tpu_torch."):
+    importlib.import_module(mod.name)
+import chip_smoke
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "flax", "optax", "hupr_tpu", "yaml"))
+print("LOADED", len([m for m in sys.modules if m.startswith("hupr_tpu_torch")]))
+print("BAD", bad)
+"""
+
+
+def test_port_imports_no_jax_no_reference_package():
+    out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
+                         capture_output=True, text=True, timeout=120,
+                         env={**os.environ, "PYTHONPATH": REPO})
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
+    assert loaded >= 15, out.stdout
+
+
+def test_port_sources_name_no_jax_or_reference_package():
+    pattern = re.compile(
+        r"^\s*(from|import)\s+(jax|flax|optax|hupr_tpu)(\.|\s|$)", re.M)
+    files = glob.glob(os.path.join(REPO, "hupr_tpu_torch", "**", "*.py"),
+                      recursive=True) + [os.path.join(REPO, "chip_smoke.py")]
+    assert len(files) >= 15
+    for path in files:
+        with open(path) as f:
+            assert not pattern.search(f.read()), path
+
+
+@pytest.mark.parametrize("path", CONFIGS, ids=os.path.basename)
+def test_shipped_configs_resolve_like_jax(path):
+    want = dataclasses.asdict(jax_config.load_config(path))
+    got = dataclasses.asdict(port_config.load_config(path))
+    assert got == want
+
+
+def test_config_count():
+    assert len(CONFIGS) == 4
+
+
+def test_flagship_serving_config_equals_yaml():
+    """chip_smoke.py builds the flagship config without PyYAML; every field
+    but the split lists, which serving never reads, is the YAML's."""
+    want = dataclasses.asdict(port_config.load_config(
+        os.path.join(REPO, "config", "mscsa_prgcn_tpu.yaml")))
+    got = dataclasses.asdict(port_config.flagship_serving_config())
+    for split in ("testName", "valName", "trainName"):
+        assert want["DATASET"].pop(split)
+        assert got["DATASET"].pop(split) == []
+    assert got == want
+
+
+def test_radar_params_validates_geometry():
+    cfg = port_config.config_from_dict({})
+    rp = cfg.DATASET.radar_params()
+    assert (rp.num_angle_bins, rp.num_kept_chirps) == (64, 16)
+    bad = port_config.config_from_dict(
+        {"DATASET": {"adcParams": {"num_adc_samples": 128}}})
+    with pytest.raises(ValueError, match="geometry"):
+        bad.DATASET.radar_params()
+
+
+def test_entry_points_refuse_silent_cpu(monkeypatch):
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.models.hupr import HuPRNet, build_model
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = port_config.config_from_dict({"MODEL": {"numFilters": 2}})
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        build_model(cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_e2e_infer(HuPRNet(num_filters=2, heatmap_size=16))
+    assert build_model(cfg, device="cpu").training is False
+
+
+@pytest.mark.parametrize("field,value,exc", [
+    ("attention", "pallas_bf16", NotImplementedError),
+    ("computeDtype", "bfloat16", NotImplementedError),
+    ("attention", "flash", ValueError),
+])
+def test_unported_model_options_raise(field, value, exc):
+    from hupr_tpu_torch.models.hupr import build_model
+
+    cfg = port_config.config_from_dict({"MODEL": {"numFilters": 2,
+                                                  field: value}})
+    with pytest.raises(exc):
+        build_model(cfg, device="cpu")
+
+
+def test_chip_smoke_fails_without_cuda():
+    out = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                         cwd=REPO, capture_output=True, text=True,
+                         timeout=120, env={**os.environ,
+                                           "CUDA_VISIBLE_DEVICES": ""})
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
