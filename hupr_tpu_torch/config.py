@@ -172,3 +172,16 @@ def flagship_serving_config() -> Config:
     serving path reads has the YAML's value (the dataset split lists, which
     serving never reads, are left empty)."""
     return Config(MODEL=ModelConfig(numFilters=32, attention="pallas"))
+
+
+def flagship_training_config() -> Config:
+    """`config/mscsa_prgcn_tpu.yaml`'s model and training recipe built
+    without PyYAML: batch 20, Adam at lr 1e-4 with weight decay 1e-4, lr
+    decay 0.999 every 2000 steps, no loss annealing. The split lists, which
+    the train step never reads, are left empty."""
+    cfg = flagship_serving_config()
+    cfg.TRAINING = TrainingConfig(
+        batchSize=20, epochs=200, lr=1e-4, warmupEpoch=-1,
+        warmupGrowth=1.005, lrDecay=0.999, lrDecayIter=2000, lossDecay=-1,
+        optimizer="adam", weightDecay=1e-4)
+    return cfg

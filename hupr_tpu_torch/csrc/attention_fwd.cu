@@ -3,7 +3,12 @@
 //   out[b, j, :] = sum_i softmax_i(k[b, i, :] . q[b, j, :]) * m[b, i, :]
 //
 // Softmax over the KEY axis i for each query j, with no 1/sqrt(C) scale.
-// Inputs and output are contiguous (B, N, C) float32.
+// Inputs and output are contiguous (B, N, C) float32. When `lse` is not
+// null the kernel also writes each query's log-sum-exp of its logits,
+// lse[b, j] = max_i s_ij + log(sum_i exp(s_ij - max_i s_ij)), (B, N) float32:
+// the residual the backward kernel (attention_bwd.cu) reads instead of
+// recomputing the softmax statistics. Serving passes null and does the
+// same work as without it.
 //
 // Replaces the TPU kernel hupr_tpu/ops/attention.py:_attention_fwd_pallas
 // (body _make_attn_kernel). That kernel keeps whole (N, C) K and M panels in
@@ -43,7 +48,7 @@ template <int C>
 __global__ void __launch_bounds__(NT)
 attention_fwd_kernel(const float* __restrict__ k, const float* __restrict__ q,
                      const float* __restrict__ m, float* __restrict__ out,
-                     int n) {
+                     float* __restrict__ lse, int n) {
   constexpr int TN = C / LANES;   // output columns per thread
   constexpr int TS = BK / LANES;  // logit columns per thread
   constexpr int QS = C + 1;       // padded row stride of the Q and K tiles
@@ -160,12 +165,14 @@ attention_fwd_kernel(const float* __restrict__ k, const float* __restrict__ q,
 #pragma unroll
     for (int t = 0; t < TN; ++t)
       out[base + size_t(row) * C + cg + 16 * t] = acc[i][t] / row_sum[i];
+    if (lse != nullptr && cg == 0)
+      lse[size_t(blockIdx.y) * n + row] = row_max[i] + logf(row_sum[i]);
   }
 }
 
 template <int C>
 cudaError_t launch(const float* k, const float* q, const float* m, float* out,
-                   int b, int n, cudaStream_t stream) {
+                   float* lse, int b, int n, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<C>();
   static_assert(smem <= 232448, "tile exceeds a Hopper block's shared memory");
   // the shared-memory limit is an attribute of the kernel on each device:
@@ -184,27 +191,28 @@ cudaError_t launch(const float* k, const float* q, const float* m, float* out,
     configured[dev] = true;
   }
   const dim3 grid((n + BQ - 1) / BQ, b);
-  attention_fwd_kernel<C><<<grid, NT, smem, stream>>>(k, q, m, out, n);
+  attention_fwd_kernel<C><<<grid, NT, smem, stream>>>(k, q, m, out, lse, n);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. Returns a cudaError_t (0 on success);
-// allocates nothing and does not synchronize.
+// Plain C entry point for ctypes. `lse` may be null. Returns a cudaError_t
+// (0 on success); allocates nothing and does not synchronize.
 extern "C" int hupr_attention_fwd(const void* k, const void* q, const void* m,
-                                  void* out, int b, int n, int c,
+                                  void* out, void* lse, int b, int n, int c,
                                   void* stream) {
   const float* kf = static_cast<const float*>(k);
   const float* qf = static_cast<const float*>(q);
   const float* mf = static_cast<const float*>(m);
   float* of = static_cast<float*>(out);
+  float* lf = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || n <= 0) return int(cudaErrorInvalidValue);
   switch (c) {
-    case 64: return int(launch<64>(kf, qf, mf, of, b, n, s));
-    case 128: return int(launch<128>(kf, qf, mf, of, b, n, s));
-    case 256: return int(launch<256>(kf, qf, mf, of, b, n, s));
+    case 64: return int(launch<64>(kf, qf, mf, of, lf, b, n, s));
+    case 128: return int(launch<128>(kf, qf, mf, of, lf, b, n, s));
+    case 256: return int(launch<256>(kf, qf, mf, of, lf, b, n, s));
     default: return int(cudaErrorInvalidValue);
   }
 }

@@ -1,0 +1,167 @@
+"""Train and eval steps (counterpart of `hupr_tpu/engine/steps.py`): the
+per-batch work of the reference (tools/run.py:65-86, misc/losses.py:23-45)
+on the card.
+
+  batch (raw radar windows + joints) -> per-plane normalize -> HuPRNet ->
+  Gaussian targets -> BCE(main) + BCE(GCN) -> backward -> torch.optim Adam
+  or SGD at the learning rate the caller passes for this step.
+
+The optimizers are the reference's own: torch Adam applies the weight decay
+into the gradient (not decoupled), as the JAX package's optax chain
+reproduces (tests/test_optimizer.py). The learning rate is written into the
+param groups on every step, as the reference mutates it
+(tools/base.py:66-72).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+
+import torch
+from torch import nn
+
+from hupr_tpu_torch.ops.heatmap import (bce_loss, generate_target_batch,
+                                        get_max_preds)
+from hupr_tpu_torch.ops.normalize import normalize_radar_window
+from hupr_tpu_torch.utils.device import float32_math
+
+
+@dataclass
+class TrainState:
+    """What a train step updates in place: the model (weights and BN
+    running statistics), its optimizer, and the count of steps taken."""
+    model: nn.Module
+    optimizer: torch.optim.Optimizer
+    step: int = 0
+
+
+def make_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
+    """TRAINING.optimizer over all of `model`'s parameters in one group."""
+    t = cfg.TRAINING
+    params = list(model.parameters())
+    if t.optimizer == "adam":
+        return torch.optim.Adam(params, lr=t.lr, betas=(0.9, 0.999),
+                                eps=1e-8, weight_decay=t.weightDecay)
+    if t.optimizer == "sgd":
+        return torch.optim.SGD(params, lr=t.lr, momentum=0.9,
+                               weight_decay=t.weightDecay)
+    raise ValueError(f"unknown TRAINING.optimizer {t.optimizer!r}")
+
+
+def _inputs(batch, device):
+    """The batch dict on `device`: normalized float32 windows, joints, and
+    the (B,) row mask or None. Windows may arrive in any float dtype."""
+    def normalized(x):
+        return normalize_radar_window(
+            torch.as_tensor(x, device=device).to(torch.float32))
+
+    mask = batch.get("mask")
+    if mask is not None:
+        mask = torch.as_tensor(mask, device=device).reshape(-1)
+    return (normalized(batch["hori"]), normalized(batch["vert"]),
+            torch.as_tensor(batch["jointsGroup"], device=device), mask)
+
+
+def _losses(model, hori, vert, joints, mask, geometry):
+    num_keypoints, heatmap_size, img_size = geometry
+    heatmap, gcn = model(hori, vert)
+    targets, _ = generate_target_batch(
+        joints, num_keypoints=num_keypoints, heatmap_size=heatmap_size,
+        img_size=img_size)
+    k, h = targets.shape[1], targets.shape[2]
+    main = heatmap.reshape(-1, k, h, h)
+    refined = gcn.reshape(-1, k, h, h)
+    return (bce_loss(main, targets, mask), bce_loss(refined, targets, mask),
+            refined, targets)
+
+
+def _combine(loss1, loss2, alpha, loss_decay):
+    """loss1 + loss2, or the annealed blend when TRAINING.lossDecay is set
+    (misc/losses.py:36-42)."""
+    if loss_decay != -1.0:
+        return alpha * loss1 + (1.0 - alpha) * loss2
+    return loss1 + loss2
+
+
+def _real_rows(mask: torch.Tensor) -> torch.Tensor:
+    """Indices of the rows whose mask is 1. The rows a data-parallel batch
+    is padded with carry 0; the JAX package keeps them out of the train-mode
+    BN statistics and the loss mean, which for a 0/1 mask is the same as
+    training on the real rows alone (the model mixes no rows but in BN)."""
+    if not bool(((mask == 0) | (mask == 1)).all()):
+        raise ValueError("batch['mask'] must hold 0 or 1 per row")
+    return torch.nonzero(mask, as_tuple=True)[0]
+
+
+def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
+                    loss_decay: float = -1.0, geometry=(14, 64, 256)):
+    """Returns train_step(state, batch, lr, alpha) -> (state, metrics).
+
+    `batch` holds 'hori' and 'vert' (B, G, C, 2, R, A, E) raw windows, numpy
+    or torch in any float dtype, 'jointsGroup' (B, K, 2) image-space joints,
+    and optionally 'mask' (B,). The caller advances alpha before each step
+    (only read when lossDecay != -1). `geometry` = (numKeypoints,
+    heatmapSize, imgSize). The forward, backward and optimizer step run in
+    full float32 (TF32 off for the call). The model runs in train mode for
+    the step and returns to its previous mode after it. metrics are 0-d
+    tensors on the card, {loss, loss1, loss2}."""
+
+    def train_step(state: TrainState, batch, lr, alpha):
+        if state.model is not model or state.optimizer is not tx:
+            raise ValueError("state holds another model or optimizer than "
+                             "this train step was made for")
+        device = next(model.parameters()).device
+        hori, vert, joints, mask = _inputs(batch, device)
+        if mask is not None:
+            rows = _real_rows(mask)
+            hori, vert, joints = hori[rows], vert[rows], joints[rows]
+        for group in tx.param_groups:
+            group["lr"] = lr
+        was_training = model.training
+        model.train()
+        try:
+            with float32_math():
+                loss1, loss2, _, _ = _losses(model, hori, vert, joints, None,
+                                             geometry)
+                loss = _combine(loss1, loss2, alpha, loss_decay)
+                tx.zero_grad(set_to_none=True)
+                loss.backward()
+                tx.step()
+        finally:
+            model.train(was_training)
+        state.step += 1
+        return state, {"loss": loss.detach(), "loss1": loss1.detach(),
+                       "loss2": loss2.detach()}
+
+    return train_step
+
+
+def make_eval_step(model: nn.Module, loss_decay: float = -1.0,
+                   geometry=(14, 64, 256)):
+    """Returns eval_step(state, batch, alpha=0.0) -> metrics: the losses
+    (masked means when the batch has 'mask'), and from the GCN heatmap
+    (the reference decodes preds2, misc/losses.py:43-44) 'pred2d' and
+    'maxvals', 'gt2d' decoded from the targets, and 'predHeatmap'. The model
+    runs in eval mode, on its running BN statistics, in full float32."""
+
+    def eval_step(state: TrainState, batch, alpha=0.0):
+        if state.model is not model:
+            raise ValueError("state holds another model than this eval "
+                             "step was made for")
+        device = next(model.parameters()).device
+        was_training = model.training
+        model.eval()
+        try:
+            with torch.inference_mode(), float32_math():
+                hori, vert, joints, mask = _inputs(batch, device)
+                loss1, loss2, refined, targets = _losses(
+                    model, hori, vert, joints, mask, geometry)
+                pred2d, maxvals = get_max_preds(refined)
+                gt2d, _ = get_max_preds(targets)
+        finally:
+            model.train(was_training)
+        return {"loss": _combine(loss1, loss2, alpha, loss_decay),
+                "loss1": loss1, "loss2": loss2, "pred2d": pred2d,
+                "gt2d": gt2d, "maxvals": maxvals, "predHeatmap": refined}
+
+    return eval_step

@@ -5,7 +5,10 @@ reference BasicBlock2D / BasicBlock3D, layers.py:8-70), NCHW / NCDHW.
     main = Conv3x3 (-BN) -act- Conv3x3 (-BN),  downsample = Conv3x3 (-BN)
 
 Child names follow the reference so the state_dict keys are its keys.
-Serving runs BatchNorm in eval mode, on the running statistics.
+BatchNorm is torch's own, as in the reference: in eval mode (serving) it
+normalizes with the running statistics; in train mode with the biased batch
+variance, while it moves the running variance by the unbiased one at
+momentum 0.1, the JAX package's TorchBatchNorm semantics.
 """
 
 from __future__ import annotations

@@ -68,12 +68,15 @@ class HuPRNet(nn.Module):
 
 
 def build_model(cfg, device=None) -> HuPRNet:
-    """HuPRNet from a hupr_tpu_torch.config.Config, in eval mode, on the
-    card unless `device` says otherwise."""
+    """HuPRNet from a hupr_tpu_torch.config.Config, in eval mode (the train
+    step switches it to train mode for its own call), on the card unless
+    `device` says otherwise."""
     if cfg.MODEL.computeDtype != "float32":
         raise NotImplementedError(
             f"MODEL.computeDtype {cfg.MODEL.computeDtype!r} is not ported "
             f"yet; only float32 is")
+    if cfg.MODEL.remat:
+        raise NotImplementedError("MODEL.remat is not ported yet")
     model = HuPRNet(
         num_filters=cfg.MODEL.numFilters,
         num_frames=cfg.DATASET.numFrames,

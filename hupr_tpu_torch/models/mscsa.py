@@ -16,14 +16,16 @@ from torch import nn
 
 from hupr_tpu_torch.models.blocks import BasicBlock, Rescale
 from hupr_tpu_torch.models.prgcn import PRGCN
-from hupr_tpu_torch.ops.attention import attention_fwd, attention_plain
+from hupr_tpu_torch.ops.attention import attention_plain, spatial_attention
 
 PROJECTIONS = ("phi_cross_hori", "theta_cross_hori", "phi_cross_vert",
                "theta_cross_vert", "phi_self_hori", "theta_self_hori",
                "phi_self_vert", "theta_self_vert")
 
-# MODEL.attention -> the (B, N, C) attention it runs
-ATTENTION = {"xla": attention_plain, "pallas": attention_fwd}
+# MODEL.attention -> the (B, N, C) attention it runs: 'pallas' launches the
+# forward kernel, and under autograd the backward kernel too; autograd
+# differentiates the plain version
+ATTENTION = {"xla": attention_plain, "pallas": spatial_attention}
 
 
 def attention_impl(name: str):

@@ -104,6 +104,7 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     ("attention", "pallas_bf16", NotImplementedError),
     ("computeDtype", "bfloat16", NotImplementedError),
     ("attention", "flash", ValueError),
+    ("remat", True, NotImplementedError),
 ])
 def test_unported_model_options_raise(field, value, exc):
     from hupr_tpu_torch.models.hupr import build_model
