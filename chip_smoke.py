@@ -22,9 +22,24 @@
 5. Trains the flagship recipe (batch 20, Adam at lr 1e-4) for a few steps
    of bench.py's synthetic batch, driven as Runner.train drives its train
    step, through the kernels and, from the same weights, through the plain
-   attention; checks the launch counts, finite losses, and that losses and
-   weights agree between the two; profiles one step of each.
-6. Ends with one JSON line {"ok": true, "device": {...}}.
+   attention; checks the launch counts, finite losses, and that the first
+   step's gradients of the attention projections, the losses, the weights
+   and the BN statistics agree between the two; profiles one step of each.
+6. The bfloat16 modes of both kernels (bfloat16 inputs; bfloat16 operands
+   on float32 inputs; bfloat16 operands on bfloat16 inputs) against their
+   plain twins and the float32 ideal at the three path shapes, on three
+   draws of inputs each, timed beside the twins and SDPA in bfloat16.
+7. The fast config (config/mscsa_prgcn_tpu_fast.yaml: MODEL.computeDtype
+   bfloat16) served and trained as in 4 and 5, against its eager attention
+   and against the float32 slice from the same weights; profiles of both.
+8. MODEL.attention pallas_bf16: two requests and one train step in each
+   compute dtype, launching the bfloat16-operand modes on the model's path;
+   the step held against the same step through the eager attention.
+9. The port's attention microbenchmark (hupr_tpu_torch.scripts.
+   attn_microbench) at (32, 4096, 64), which drives the unfolded forward,
+   after that kernel is held against its twin.
+10. Prints the `kernels` line (every kernel and mode), then ends with one
+   JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
 rest of the repository beside it.
@@ -40,7 +55,8 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-KERNELS = ("attention_fwd", "attention_bwd")   # hupr_tpu_torch/csrc/*.cu
+# hupr_tpu_torch/csrc/*.cu
+KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_unfolded")
 REQUESTS = 8            # timed requests of the serving slice
 FRAMES = 32             # raw frames per request and radar view (bench.py)
 ATTN_BATCH = 32         # windows per request = the attention's batch
@@ -52,17 +68,66 @@ TRAIN_STEPS = 4         # timed train steps per path, after one warm-up step
 # Pallas backward, atol + rtol * |plain|
 GRAD_ATOL, GRAD_RTOL = 1e-3, 1e-4
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
-# kernel path vs plain-attention path over the train steps: the bars of
-# tests/test_reference_parity.py (loss per step; weights and BN statistics)
-LOSS_RTOL = 2e-4
+# kernel path vs plain-attention path over the train steps: the weights
+# within the bars of tests/test_reference_parity.py in both compute dtypes
 PARAM_ATOL, PARAM_RTOL = 7e-4, 1e-3
 # (N, C) of the 12 attention calls per forward: 4 at each MSCSA scale
 ATTN_SHAPES = ((256, 256), (1024, 128), (4096, 64))
+# the bfloat16 modes: (name, input dtype, bf16_ops)
+BF16_MODES = (("bf16", "bfloat16", False), ("f32_bf16ops", "float32", True),
+              ("bf16_bf16ops", "bfloat16", True))
+# bfloat16 bars, relative norm errors (bfloat16 rounds to 2^-9 relative):
+# kernel vs the float32 ideal on the same values 2^-8.5 (the bar of
+# tests/test_attention.py for bfloat16 gradients); kernel vs its twin 2^-7.5
+# (each within 2^-8.5 of the ideal; they round p against other maxima)
+REL_IDEAL, REL_TWIN = 2.0 ** -8.5, 2.0 ** -7.5
+# The backward and its twin share every rounding point and the forward's out
+# and lse; they differ only where a float32 sum in another order lands on
+# the other side of a bfloat16 rounding boundary (<= 3.6e-5 relative on the
+# H100). Moving one rounding point (p, dS or D rounded or not) moves the
+# twin by more (tests/test_torch_bf16.py::test_bwd_twin_bar_sees_rounding).
+REL_TWIN_BWD = 2.0 ** -12
+# independent inputs per (mode, shape) for the bfloat16 error readings: a
+# relative norm error over >= 1.3M roundings varies by about 1 % from draw
+# to draw, so the worst of three sits where the bar expects it
+DRAWS = 3
+# bfloat16 serving against the eager attention in bfloat16, which rounds its
+# softmax to bfloat16 where the kernels keep it float32
+MAXVAL_TOL_BF16 = 1e-2
+# Train steps, kernel path vs eager path in the same compute dtype, per
+# dtype: the loss per step (relative), the BN running statistics (atol,
+# rtol) and the gradients of the decoder's 24 attention projections at the
+# first step, from the same weights (relative norm error). Those weights
+# get their gradient only through the attention's dk and dq, so the last
+# bar holds the backward kernel on the model's path, where a wrong dk or dq
+# reads O(1); Adam moves each weight by about lr whatever its gradient, so
+# losses and weights cannot. float32: the bars of
+# tests/test_reference_parity.py; the projections read 6.8e-5 on the H100
+# (float32 sums in another order, over many cancelling terms): bar 1e-3.
+# bfloat16: the paths round at other points (the eager softmax), so losses
+# read 1.0e-4 and 6.4e-5 after 5 steps on the H100: bar 5x the worst; the
+# statistics at the bar of tests/test_torch_bf16.py (they average bfloat16
+# activations); the projections read 3.3e-3 to 9.0e-3 in the three bf16
+# modes on the H100: bar 2^-4.
+TRAIN_BARS = {"f32": {"loss_rtol": 2e-4, "stats": (7e-4, 1e-3),
+                      "proj_grad_rel": 1e-3},
+              "bf16": {"loss_rtol": 5e-4, "stats": (5e-3, 2e-2),
+                       "proj_grad_rel": 2.0 ** -4}}
+# bfloat16 against float32 from the same weights: the JAX package's own
+# bars (tests/test_bf16_compute.py)
+HEATMAP_TOL_VS_F32, DECODE_AGREE_VS_F32 = 0.05, 0.75
+MICRO_SHAPE = (32, 4096, 64)   # the JAX microbenchmark's default
 
-# float32 FMA-pipe peak (flop/s) and memory rate (byte/s) from NVIDIA's
-# H100 data sheet, dense, at the full power limit of each variant
-PEAKS = {"PCIe": (51.2e12, 2.0e12), "NVL": (60.0e12, 3.9e12),
-         "SXM": (66.9e12, 3.35e12)}
+# Peaks of each H100 variant at its full power limit, dense: float32
+# FMA-pipe and bfloat16 tensor-core flop/s and the memory rate (NVIDIA's
+# data sheet); the SFU's exp rate, 16 a clock per SM (CUDA programming
+# guide, arithmetic throughput, compute capability 9.0) x SMs x boost clock
+PEAKS = {"PCIe": {"f32": 51.2e12, "bf16": 756e12, "bytes": 2.0e12,
+                  "sfu": 16 * 114 * 1.755e9},
+         "NVL": {"f32": 60.0e12, "bf16": 835e12, "bytes": 3.9e12,
+                 "sfu": 16 * 132 * 1.785e9},
+         "SXM": {"f32": 66.9e12, "bf16": 989e12, "bytes": 3.35e12,
+                 "sfu": 16 * 132 * 1.98e9}}
 
 
 def card_peaks(name: str):
@@ -94,11 +159,53 @@ def cuda_ms(torch, fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def check_attention(torch, peak_flops, peak_bytes):
-    """Kernel vs plain version at the three path shapes; returns per-shape
-    results."""
+def sdpa(q, k, m):
+    """The library yardstick: F.scaled_dot_product_attention with query q,
+    key k, value m and no scale, on (B, 1, N, C) views of the (B, N, C)
+    tensors (one head; a 3-D call takes SDPA's math backend), returned as
+    (B, N, C)."""
     import torch.nn.functional as F
 
+    return F.scaled_dot_product_attention(q[:, None], k[:, None], m[:, None],
+                                          scale=1.0)[:, 0]
+
+
+def attention_bound(kind: str, b: int, n: int, c: int, mode: str, peaks,
+                    lse: bool = False):
+    """(bound ms, bound_by) of one attention call in `mode`: the larger of
+    the bytes term (each input read once, each output written once, at the
+    memory rate) and the operations term, the slowest of the three pipes the
+    work needs at their peaks, which run side by side: products of two
+    bfloat16 operands on the tensor cores, products with a float32 operand
+    on the float32 FMA pipes, and the B*N^2 exps on the SFU. `kind` is
+    "fwd" or "unfolded" (2 products of 2*B*N^2*C flops: logits, p.m) or
+    "bwd" (5: logits, dP, dq, dk, dm). With bfloat16 inputs the logits (and
+    dP) take two bfloat16 operands and the rest a float32 p or dS; under
+    bf16_ops every product takes two."""
+    product = 2 * b * n * n * c
+    total = 5 if kind == "bwd" else 2
+    if mode.endswith("bf16ops"):
+        tensor = total
+    elif mode == "bf16":
+        tensor = 2 if kind == "bwd" else 1
+    else:
+        tensor = 0
+    size = 2 if mode.startswith("bf16") else 4
+    if kind == "bwd":     # k, q, m, out, g and lse read; dk, dq, dm written
+        nbytes = 8 * b * n * c * size + 4 * b * n
+    else:                 # k, q, m read; out (and lse) written
+        nbytes = 4 * b * n * c * size + (4 * b * n if lse else 0)
+    terms = {"bytes": nbytes / peaks["bytes"],
+             "tensor": tensor * product / peaks["bf16"],
+             "fma": (total - tensor) * product / peaks["f32"],
+             "sfu": b * n * n / peaks["sfu"]}
+    worst = max(terms, key=terms.get)
+    return 1e3 * terms[worst], "bytes" if worst == "bytes" else "operations"
+
+
+def check_attention(torch, peaks):
+    """Kernel vs plain version at the three path shapes; returns per-shape
+    results."""
     from hupr_tpu_torch.ops.attention import (attention_flops,
                                               attention_fwd, attention_plain)
     from hupr_tpu_torch.utils.device import float32_math
@@ -115,17 +222,15 @@ def check_attention(torch, peak_flops, peak_bytes):
             err = (got - want).abs().max().item()
             kernel_ms = cuda_ms(torch, lambda: attention_fwd(k, q, m), 10)
             plain_ms = cuda_ms(torch, lambda: attention_plain(k, q, m), 5)
-            library_ms = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-                q, k, m, scale=1.0), 10)
+            library_ms = cuda_ms(torch, lambda: sdpa(q, k, m), 10)
         flops = attention_flops(ATTN_BATCH, n, c)
-        nbytes = 4 * ATTN_BATCH * n * c * 4     # k, q, m read, out written
-        ops_ms, bytes_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bytes
-        bound_ms = max(ops_ms, bytes_ms)
-        row = {"kernel": "attention_fwd", "B": ATTN_BATCH, "N": n, "C": c,
+        bound_ms, bound_by = attention_bound("fwd", ATTN_BATCH, n, c, "f32",
+                                             peaks)
+        row = {"kernel": "attention_fwd", "mode": "f32", "B": ATTN_BATCH,
+               "N": n, "C": c,
                "max_abs_err": err, "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
-               "bound_ms": bound_ms,
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "bound_ms": bound_ms, "bound_by": bound_by,
                "tflops": flops / kernel_ms / 1e9}
         print(json.dumps(row), flush=True)
         if not err <= ATTN_TOL:
@@ -141,15 +246,13 @@ def allclose_excess(a, b, atol, rtol) -> float:
     return ((a - b).abs() - (atol + rtol * b.abs())).max().item()
 
 
-def check_attention_bwd(torch, peak_flops, peak_bytes):
+def check_attention_bwd(torch, peaks):
     """Backward kernel vs plain version, and the forward's log-sum-exp vs
     torch.logsumexp, at the three path shapes with the training batch;
     returns per-shape results."""
-    import torch.nn.functional as F
-
     from hupr_tpu_torch.ops.attention import (BWD_MATMULS, attention_bwd,
                                               attention_bwd_plain,
-                                              attention_fwd)
+                                              attention_fwd, attention_plain)
     from hupr_tpu_torch.utils.device import float32_math
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -181,31 +284,38 @@ def check_attention_bwd(torch, peak_flops, peak_bytes):
             del got, want
             kernel_ms = cuda_ms(torch, lambda: attention_bwd(
                 k, q, m, out, lse, g), 10)
-            # the forward as training launches it, with the LSE store
+            # the forward as training launches it, with the LSE store, its
+            # plain version with the LSE, and SDPA's forward at this batch
             fwd_lse_ms = cuda_ms(torch, lambda: attention_fwd(
                 k, q, m, with_lse=True), 10)
+            fwd_lse_plain_ms = cuda_ms(torch, lambda: attention_plain(
+                k, q, m, with_lse=True), 5)
+            fwd_lse_library_ms = cuda_ms(torch, lambda: sdpa(q, k, m), 10)
             plain_ms = cuda_ms(torch, lambda: attention_bwd_plain(
                 k, q, m, out, lse, g), 5)
         # the library's backward alone: SDPA (query q, key k, value m, no
         # scale) differentiated with its graph kept between calls
         with float32_math():
             qs, ks, ms_ = (x.clone().requires_grad_(True) for x in (q, k, m))
-            o = F.scaled_dot_product_attention(qs, ks, ms_, scale=1.0)
+            o = sdpa(qs, ks, ms_)
             library_ms = cuda_ms(torch, lambda: torch.autograd.grad(
                 o, (qs, ks, ms_), g, retain_graph=True), 10)
             del o, qs, ks, ms_
         flops = 2 * b * n * n * c * BWD_MATMULS
-        # k, q, m, out, g and lse read, dk, dq, dm written
-        nbytes = 4 * (8 * b * n * c + b * n)
-        ops_ms, bytes_ms = 1e3 * flops / peak_flops, 1e3 * nbytes / peak_bytes
-        row = {"kernel": "attention_bwd", "B": b, "N": n, "C": c,
+        bound_ms, bound_by = attention_bound("bwd", b, n, c, "f32", peaks)
+        row = {"kernel": "attention_bwd", "mode": "f32", "B": b, "N": n,
+               "C": c,
                "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
                "max_abs_by_grad": scale,
                "allclose_excess": excess, "lse_max_abs_err": lse_err,
                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
-               "library_ms": library_ms, "bound_ms": max(ops_ms, bytes_ms),
+               "library_ms": library_ms, "bound_ms": bound_ms,
                "fwd_with_lse_ms": fwd_lse_ms,
-               "bound_by": "operations" if ops_ms >= bytes_ms else "bytes",
+               "fwd_with_lse_plain_ms": fwd_lse_plain_ms,
+               "fwd_with_lse_library_ms": fwd_lse_library_ms,
+               "fwd_with_lse_bound_ms": attention_bound(
+                   "fwd", b, n, c, "f32", peaks, lse=True)[0],
+               "bound_by": bound_by,
                "tflops": flops / kernel_ms / 1e9}
         print(json.dumps(row), flush=True)
         if not excess <= 0:
@@ -220,20 +330,204 @@ def check_attention_bwd(torch, peak_flops, peak_bytes):
     return rows
 
 
-def serve_slice(torch, requests, card: str):
-    """Serve `requests` through the flagship config with the kernel, then
-    through the plain attention; returns the slice's results."""
+def unit_spread(torch, gen, shape, dtype, count):
+    """`count` N(0, 1) tensors on the card, the first two (k and q) scaled
+    by C^-1/4 so that the logits have unit spread, cast to `dtype`."""
+    c = shape[-1]
+    ts = [torch.randn(shape, generator=gen, device="cuda")
+          for _ in range(count)]
+    ts[0], ts[1] = ts[0] * c ** -0.25, ts[1] * c ** -0.25
+    return [t.to(dtype) for t in ts]
+
+
+def rel_err(a, w) -> float:
+    """Relative norm error of a against w, in float32."""
+    a, w = a.float(), w.float()
+    return ((a - w).norm() / w.norm()).item()
+
+
+def operand_values(torch, ts, bf16_ops):
+    """The float32 values a mode computes with: rounded to bfloat16 under
+    bf16_ops."""
+    return [(t.to(torch.bfloat16) if bf16_ops else t).float() for t in ts]
+
+
+def check_bf16_rel(what, errs, twin_bar=REL_TWIN):
+    """Raise unless every error is within its bar."""
+    if not (errs["rel_err_vs_twin"] <= twin_bar
+            and errs["rel_err_vs_ideal"] <= REL_IDEAL):
+        raise AssertionError(f"{what}: relative errors {errs} exceed "
+                             f"{twin_bar} (twin) or {REL_IDEAL} (ideal)")
+
+
+def worst_of(draws):
+    """Each error's largest value over the draws (other keys from the
+    first), and the ideal's error per draw."""
+    out = dict(draws[0])
+    for key in ("max_abs_err", "rel_err_vs_twin", "rel_err_vs_ideal",
+                "lse_max_abs_err"):
+        if key in out:
+            out[key] = max(d[key] for d in draws)
+    out["rel_err_vs_ideal_by_draw"] = [d["rel_err_vs_ideal"] for d in draws]
+    return out
+
+
+def check_attention_modes(torch, peaks):
+    """Both kernels in each bfloat16 mode against their plain twins (the
+    same rounding points, the working dtype) and the float32 ideal on the
+    mode's values, at the three path shapes: the forward at B=32 as served,
+    the forward with its LSE and the backward at B=20 as trained. Times
+    kernel, twin, and SDPA in bfloat16 (its backward for the backward).
+    Returns per-(mode, shape) results."""
+    from hupr_tpu_torch.ops.attention import (attention_bwd,
+                                              attention_bwd_plain,
+                                              attention_flops, attention_fwd,
+                                              attention_plain)
+    from hupr_tpu_torch.utils.device import float32_math
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    bf16 = torch.bfloat16
+    rows = []
+    for mode, dtype_name, ops in BF16_MODES:
+        dtype = getattr(torch, dtype_name)
+        for n, c in ATTN_SHAPES:
+            # serving: the forward at B=32, held on DRAWS inputs; the last
+            # is timed
+            draws = []
+            for _ in range(DRAWS):
+                k, q, m = unit_spread(torch, gen, (ATTN_BATCH, n, c), dtype,
+                                      3)
+                with torch.inference_mode(), float32_math():
+                    got = attention_fwd(k, q, m, bf16_ops=ops)
+                    want = attention_plain(k, q, m, bf16_ops=ops)
+                    ideal = attention_plain(*operand_values(torch, (k, q, m),
+                                                            ops))
+                    draws.append({"dtype": str(got.dtype),
+                                  "max_abs_err": (got.float() - want.float())
+                                  .abs().max().item(),
+                                  "rel_err_vs_twin": rel_err(got, want),
+                                  "rel_err_vs_ideal": rel_err(got, ideal)})
+                    del got, want, ideal
+            fwd = worst_of(draws)
+            kb, qb, mb = (t.to(bf16) for t in (k, q, m))
+            with torch.inference_mode(), float32_math():
+                fwd["kernel_ms"] = cuda_ms(torch, lambda: attention_fwd(
+                    k, q, m, bf16_ops=ops), 10)
+                fwd["plain_ms"] = cuda_ms(torch, lambda: attention_plain(
+                    k, q, m, bf16_ops=ops), 5)
+                fwd["library_ms"] = cuda_ms(torch, lambda: sdpa(qb, kb, mb),
+                                            10)
+            fwd["bound_ms"], fwd["bound_by"] = attention_bound(
+                "fwd", ATTN_BATCH, n, c, mode, peaks)
+            fwd["tflops"] = attention_flops(ATTN_BATCH, n, c) \
+                / fwd["kernel_ms"] / 1e9
+            del k, q, m, kb, qb, mb
+
+            # training: the forward with its LSE and the backward at B=20,
+            # held on DRAWS inputs; the last is timed
+            b = TRAIN_BATCH
+            draws = []
+            for _ in range(DRAWS):
+                k, q, m, g = unit_spread(torch, gen, (b, n, c), dtype, 4)
+                with torch.inference_mode(), float32_math():
+                    out, lse = attention_fwd(k, q, m, with_lse=True,
+                                             bf16_ops=ops)
+                    vals = operand_values(torch, (k, q, m, g), ops)
+                    ideal_out, ideal_lse = attention_plain(*vals[:3],
+                                                           with_lse=True)
+                    got = attention_bwd(k, q, m, out, lse, g, bf16_ops=ops)
+                    want = attention_bwd_plain(k, q, m, out, lse, g, ops)
+                    ideal = attention_bwd_plain(*vals[:3], ideal_out,
+                                                ideal_lse, vals[3])
+                    draws.append({
+                        "dtypes": [str(t.dtype) for t in got],
+                        "lse_dtype": str(lse.dtype),
+                        "lse_max_abs_err": (lse - ideal_lse).abs().max()
+                        .item(),
+                        "max_abs_err": max((a.float() - w.float()).abs()
+                                           .max().item()
+                                           for a, w in zip(got, want)),
+                        "rel_err_vs_twin": max(rel_err(a, w)
+                                               for a, w in zip(got, want)),
+                        "rel_err_vs_ideal": max(rel_err(a, i)
+                                                for a, i in zip(got, ideal))})
+                    del got, want, ideal, vals, ideal_out, ideal_lse
+            bwd = worst_of(draws)
+            kb, qb, mb, gb = (t.to(bf16) for t in (k, q, m, g))
+            with torch.inference_mode(), float32_math():
+                bwd["kernel_ms"] = cuda_ms(torch, lambda: attention_bwd(
+                    k, q, m, out, lse, g, bf16_ops=ops), 10)
+                bwd["plain_ms"] = cuda_ms(torch, lambda: attention_bwd_plain(
+                    k, q, m, out, lse, g, ops), 5)
+                with_lse = {
+                    "kernel_ms": cuda_ms(torch, lambda: attention_fwd(
+                        k, q, m, with_lse=True, bf16_ops=ops), 10),
+                    "plain_ms": cuda_ms(torch, lambda: attention_plain(
+                        k, q, m, True, ops), 5),
+                    "library_ms": cuda_ms(torch, lambda: sdpa(qb, kb, mb),
+                                          10)}
+            with float32_math():
+                qs, ks, ms_ = (x.clone().requires_grad_(True)
+                               for x in (qb, kb, mb))
+                o = sdpa(qs, ks, ms_)
+                bwd["library_ms"] = cuda_ms(torch, lambda: torch.autograd.grad(
+                    o, (qs, ks, ms_), gb, retain_graph=True), 10)
+                del o, qs, ks, ms_
+            bwd["bound_ms"], bwd["bound_by"] = attention_bound(
+                "bwd", b, n, c, mode, peaks)
+            with_lse["bound_ms"], with_lse["bound_by"] = attention_bound(
+                "fwd", b, n, c, mode, peaks, lse=True)
+            row = {"kernel": "attention", "mode": mode, "N": n, "C": c,
+                   "fwd_B32": fwd, "fwd_with_lse_B20": with_lse,
+                   "bwd_B20": bwd}
+            print(json.dumps(row), flush=True)
+            del k, q, m, g, kb, qb, mb, gb, out, lse
+            check_bf16_rel(f"attention_fwd {mode} N={n} C={c}", fwd)
+            check_bf16_rel(f"attention_bwd {mode} N={n} C={c}", bwd,
+                           REL_TWIN_BWD)
+            if fwd["dtype"] != str(dtype) or bwd["dtypes"] != [str(dtype)] * 3:
+                raise AssertionError(f"{mode}: output dtypes {fwd['dtype']}, "
+                                     f"{bwd['dtypes']}, expected {dtype}")
+            if bwd["lse_dtype"] != "torch.float32" or \
+                    not bwd["lse_max_abs_err"] <= LSE_ATOL:
+                raise AssertionError(f"{mode} LSE: {bwd['lse_dtype']}, max "
+                                     f"abs error {bwd['lse_max_abs_err']}")
+            rows.append(row)
+    return rows
+
+
+def decode_vs(outs, ref):
+    """(max |maxvals - ref maxvals|, share of keypoints decoded to the same
+    bin) over paired serving outputs."""
     import numpy as np
 
-    from hupr_tpu_torch.config import ModelConfig, flagship_serving_config
+    err = max((mv - mr).abs().max().item()
+              for (_, mv), (_, mr) in zip(outs, ref))
+    agree = np.mean([(p == pr).all(dim=-1).float().mean().item()
+                     for (p, _), (pr, _) in zip(outs, ref)])
+    return err, float(agree)
+
+
+def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
+                mode: str = "f32", maxval_tol: float = MAXVAL_TOL,
+                vs_f32=None):
+    """Serve `requests` through `cfg` (the flagship config by default) with
+    the kernel, then through the eager attention in the same compute dtype;
+    with `vs_f32`, also against the float32 slice's outputs. Returns the
+    slice's results, the kernel path's run and its outputs."""
+    import copy
+
+    import numpy as np
+
+    from hupr_tpu_torch.config import flagship_serving_config
     from hupr_tpu_torch.engine.pipeline import make_e2e_infer
     from hupr_tpu_torch.models.hupr import build_model
-    from hupr_tpu_torch.ops.attention import attention_bwd, attention_fwd
+    from hupr_tpu_torch.ops import attention
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
-    cfg = flagship_serving_config()
+    cfg = cfg or flagship_serving_config()
     if cfg.MODEL.attention != "pallas":
-        raise AssertionError("the flagship serving config runs the kernel")
+        raise AssertionError("the serving config runs the kernel")
     model = build_model(cfg)
     # N(0, 0.03) keeps the flagship's heatmap peaks spread out: at 0.05 the
     # PRGCN's sums over 1024 nodes saturate the sigmoid at 1 everywhere
@@ -241,9 +535,8 @@ def serve_slice(torch, requests, card: str):
     ds = cfg.DATASET
     run = make_e2e_infer(model, state, ds.radar_params(), duration=FRAMES,
                          group=ds.numGroupFrames, num_frames=ds.numFrames)
-    cfg_x = flagship_serving_config()
-    cfg_x.MODEL = ModelConfig(numFilters=cfg.MODEL.numFilters,
-                              attention="xla")
+    cfg_x = copy.deepcopy(cfg)
+    cfg_x.MODEL.attention = "xla"
     run_x = make_e2e_infer(build_model(cfg_x), state, ds.radar_params(),
                            duration=FRAMES, group=ds.numGroupFrames,
                            num_frames=ds.numFrames)
@@ -259,18 +552,19 @@ def serve_slice(torch, requests, card: str):
         fn(*requests[0])
     # in turns on one card: plain attention, kernel, plain attention
     _, elapsed_x1 = serve(run_x)
-    attention_fwd.launches = attention_bwd.launches = 0
+    attention.reset_launch_counts()
     outs, elapsed = serve(run)
-    launches = attention_fwd.launches
-    bwd_launches = attention_bwd.launches
+    launches = attention.attention_fwd.launches
+    by_mode = dict(attention.attention_fwd.launches_by_mode)
+    bwd_launches = attention.attention_bwd.launches
     outs_x, elapsed_x2 = serve(run_x)
 
     per_request = 12
-    if launches != per_request * len(requests) or bwd_launches != 0:
-        raise AssertionError(f"serving launched attention_fwd {launches} and "
+    if by_mode != {mode: per_request * len(requests)} or bwd_launches != 0:
+        raise AssertionError(f"serving launched attention_fwd {by_mode} and "
                              f"attention_bwd {bwd_launches} times for "
                              f"{len(requests)} requests, expected "
-                             f"{per_request} and 0 each")
+                             f"{per_request} each in mode {mode} and 0")
     k = ds.numKeypoints
     for pred, maxv in outs:
         if tuple(pred.shape) != (FRAMES, k, 2) or \
@@ -290,17 +584,30 @@ def serve_slice(torch, requests, card: str):
     frames = FRAMES * len(requests)
     result = {"card": card, "requests": len(requests),
               "frames_per_request": FRAMES,
+              "compute_dtype": cfg.MODEL.computeDtype,
               "seconds": elapsed,
               "frames_per_s": frames / elapsed,
               "frames_per_s_xla": [frames / elapsed_x1, frames / elapsed_x2],
               "attention_launches": launches,
+              "attention_launches_by_mode": by_mode,
               "maxvals_max_abs_err_vs_xla": maxval_err,
               "pred2d_identical_share_vs_xla": float(same)}
-    print(json.dumps({"slice": result}), flush=True)
-    if not maxval_err <= MAXVAL_TOL:
+    if vs_f32 is not None:
+        err, agree = decode_vs(outs, vs_f32)
+        result["maxvals_max_abs_err_vs_f32"] = err
+        result["keypoint_agreement_vs_f32"] = agree
+    print(json.dumps({label: result}), flush=True)
+    if not maxval_err <= maxval_tol:
         raise AssertionError(f"maxvals differ from the plain-attention "
-                             f"path by {maxval_err} > {MAXVAL_TOL}")
-    return result, run
+                             f"path by {maxval_err} > {maxval_tol}")
+    if vs_f32 is not None and not (
+            result["maxvals_max_abs_err_vs_f32"] <= HEATMAP_TOL_VS_F32
+            and result["keypoint_agreement_vs_f32"] >= DECODE_AGREE_VS_F32):
+        raise AssertionError(f"{label} against the float32 slice: maxvals "
+                             f"within {result['maxvals_max_abs_err_vs_f32']},"
+                             f" agreement "
+                             f"{result['keypoint_agreement_vs_f32']}")
+    return result, run, outs
 
 
 def profile(torch, path: str, fn, top: int = 12):
@@ -336,39 +643,57 @@ def profile(torch, path: str, fn, top: int = 12):
     print(json.dumps({"profile": out}), flush=True)
 
 
-def train_slice(torch, card: str):
-    """The flagship training step through the kernels and, from the same
-    weights, through the plain attention, on bench.py's batch; returns the
+def bench_batch(torch, cfg):
+    """bench.py's batch: N(0, 1) windows per view, joints uniform in
+    (20, 230), made on the card from a seed."""
+    t, ds = cfg.TRAINING, cfg.DATASET
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    shape = (t.batchSize, ds.numGroupFrames, ds.numFrames, 2, ds.rangeSize,
+             ds.azimuthSize, ds.elevationSize)
+    return {"hori": torch.randn(shape, generator=gen, device="cuda"),
+            "vert": torch.randn(shape, generator=gen, device="cuda"),
+            "jointsGroup": 20 + 210 * torch.rand(
+                (t.batchSize, ds.numKeypoints, 2), generator=gen,
+                device="cuda", dtype=torch.float64)}
+
+
+def projection_grads(torch, model):
+    """The gradients of the decoder's 24 attention projections (phi_*,
+    theta_*), one flat float32 tensor: they reach those weights only
+    through the attention's dk and dq."""
+    from hupr_tpu_torch.models.mscsa import PROJECTIONS
+
+    dec = model.radarDecoder
+    return torch.cat([conv.weight.grad.flatten() for name in PROJECTIONS
+                      for conv in getattr(dec, name)])
+
+
+def train_slice(torch, card: str, make_cfg=None, label: str = "train",
+                mode: str = "f32"):
+    """The training step of `make_cfg()` (the flagship recipe by default)
+    through the kernels in `mode` and, from the same weights, through the
+    eager attention in the same compute dtype, on bench.py's batch: the
+    projections' gradients at the first step, then the losses, weights and
+    BN statistics after the timed steps, at TRAIN_BARS[mode]; returns the
     slice's results and, for each path, a function that takes one more
     step."""
-    from hupr_tpu_torch.config import ModelConfig, flagship_training_config
+    from hupr_tpu_torch.config import flagship_training_config
     from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
                                              make_train_step)
     from hupr_tpu_torch.models.hupr import build_model
-    from hupr_tpu_torch.ops.attention import attention_bwd, attention_fwd
+    from hupr_tpu_torch.ops import attention
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
-    cfg = flagship_training_config()
+    make_cfg = make_cfg or flagship_training_config
+    cfg, cfg_x = make_cfg(), make_cfg()
     if cfg.MODEL.attention != "pallas":
-        raise AssertionError("the flagship training config runs the kernels")
-    cfg_x = flagship_training_config()
-    cfg_x.MODEL = ModelConfig(numFilters=cfg.MODEL.numFilters,
-                              attention="xla")
+        raise AssertionError("the training config runs the kernels")
+    cfg_x.MODEL.attention = "xla"
     t, ds = cfg.TRAINING, cfg.DATASET
     if t.batchSize != TRAIN_BATCH:
         raise AssertionError(f"flagship batch {t.batchSize}")
     geometry = (ds.numKeypoints, ds.heatmapSize, ds.imgSize)
-
-    # bench.py's batch: N(0, 1) windows per view, joints uniform in
-    # (20, 230), made on the card from a seed
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    shape = (t.batchSize, ds.numGroupFrames, ds.numFrames, 2, ds.rangeSize,
-             ds.azimuthSize, ds.elevationSize)
-    batch = {"hori": torch.randn(shape, generator=gen, device="cuda"),
-             "vert": torch.randn(shape, generator=gen, device="cuda"),
-             "jointsGroup": 20 + 210 * torch.rand(
-                 (t.batchSize, ds.numKeypoints, 2), generator=gen,
-                 device="cuda", dtype=torch.float64)}
+    batch = bench_batch(torch, cfg)
 
     paths = {}
     for name, c in (("pallas", cfg), ("xla", cfg_x)):
@@ -396,46 +721,63 @@ def train_slice(torch, card: str):
                 p["lr"] *= t.warmupGrowth if 0 < t.warmupEpoch else t.lrDecay
             p["idx"] += 1
 
+    grads = {}
     for name in ("pallas", "xla"):          # warm-up: cuDNN plans, caches
         drive(paths[name], 1)
+        grads[name] = projection_grads(torch, paths[name]["state"].model)
+    grad_rel = rel_err(grads["pallas"], grads["xla"])
+    del grads
     timing = {}
     # in turns on one card: the kernel path, then the plain attention
     for name in ("pallas", "xla"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        attention_fwd.launches = attention_bwd.launches = 0
+        attention.reset_launch_counts()
         t0 = time.perf_counter()
         drive(paths[name], TRAIN_STEPS)
         torch.cuda.synchronize()
         timing[name] = {
             "seconds": time.perf_counter() - t0,
-            "launches": (attention_fwd.launches, attention_bwd.launches),
+            "launches": (attention.attention_fwd.launches,
+                         attention.attention_bwd.launches),
+            "by_mode": (dict(attention.attention_fwd.launches_by_mode),
+                        dict(attention.attention_bwd.launches_by_mode)),
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
 
-    want = (12 * TRAIN_STEPS, 12 * TRAIN_STEPS)
-    if timing["pallas"]["launches"] != want or \
+    want = {mode: 12 * TRAIN_STEPS}
+    if timing["pallas"]["by_mode"] != (want, want) or \
             timing["xla"]["launches"] != (0, 0):
         raise AssertionError(f"train steps launched (attention_fwd, "
-                             f"attention_bwd) {timing['pallas']['launches']} "
+                             f"attention_bwd) {timing['pallas']['by_mode']} "
                              f"times through the kernels and "
                              f"{timing['xla']['launches']} through the plain "
-                             f"attention; expected {want} and (0, 0)")
+                             f"attention; expected {want} each and (0, 0)")
     losses = {name: [x.item() for x in p["losses"]]
               for name, p in paths.items()}
     if not all(map(math.isfinite, losses["pallas"] + losses["xla"])):
         raise AssertionError(f"non-finite train losses {losses}")
     loss_rel = max(abs(a - b) / abs(b)
                    for a, b in zip(losses["pallas"], losses["xla"]))
-    sd, sd_x = (p["state"].model.state_dict() for p in paths.values())
-    param_excess = max(allclose_excess(sd[key], sd_x[key], PARAM_ATOL,
-                                       PARAM_RTOL)
-                       for key in sd if sd[key].is_floating_point())
-    param_err = max((sd[key] - sd_x[key]).abs().max().item()
-                    for key in sd if sd[key].is_floating_point())
+    bars = TRAIN_BARS[mode]
+    models = [p["state"].model for p in paths.values()]
+    params, params_x = ({k: v.detach() for k, v in mdl.named_parameters()}
+                        for mdl in models)
+    stats, stats_x = ({k: v for k, v in mdl.named_buffers()
+                       if v.is_floating_point()} for mdl in models)
+    param_excess = max(allclose_excess(params[key], params_x[key],
+                                       PARAM_ATOL, PARAM_RTOL)
+                       for key in params)
+    param_err = max((params[key] - params_x[key]).abs().max().item()
+                    for key in params)
+    stats_excess = max(allclose_excess(stats[key], stats_x[key],
+                                       *bars["stats"]) for key in stats)
+    stats_err = max((stats[key] - stats_x[key]).abs().max().item()
+                    for key in stats)
     b = TRAIN_BATCH
     ms = {name: 1e3 * tm["seconds"] / TRAIN_STEPS
           for name, tm in timing.items()}
     result = {"card": card, "batch": b, "steps": 1 + TRAIN_STEPS,
+              "compute_dtype": cfg.MODEL.computeDtype,
               "timed_steps": TRAIN_STEPS,
               "train_ms_per_step": ms["pallas"],
               "train_samples_per_sec": 1e3 * b / ms["pallas"],
@@ -445,20 +787,192 @@ def train_slice(torch, card: str):
               "loss_max_rel_err_vs_xla": loss_rel,
               "param_max_abs_err_vs_xla": param_err,
               "param_allclose_excess": param_excess,
+              "bn_stats_max_abs_err_vs_xla": stats_err,
+              "bn_stats_allclose_excess": stats_excess,
+              "projection_grad_rel_err_vs_xla": grad_rel,
               "attention_fwd_launches": timing["pallas"]["launches"][0],
               "attention_bwd_launches": timing["pallas"]["launches"][1],
+              "launches_by_mode": timing["pallas"]["by_mode"],
               "max_memory_allocated": timing["pallas"]["max_memory_allocated"],
               "max_memory_allocated_xla":
                   timing["xla"]["max_memory_allocated"]}
-    print(json.dumps({"train": result}), flush=True)
-    if not loss_rel <= LOSS_RTOL:
+    print(json.dumps({label: result}), flush=True)
+    if not grad_rel <= bars["proj_grad_rel"]:
+        raise AssertionError(f"the projections' gradients at the first step "
+                             f"differ from the plain-attention path by "
+                             f"{grad_rel} relative > {bars['proj_grad_rel']}")
+    if not loss_rel <= bars["loss_rtol"]:
         raise AssertionError(f"train losses differ from the plain-attention "
-                             f"path by {loss_rel} relative > {LOSS_RTOL}")
-    if not param_excess <= 0:
-        raise AssertionError(f"weights after the steps differ from the "
-                             f"plain-attention path by up to {param_err}")
+                             f"path by {loss_rel} relative > "
+                             f"{bars['loss_rtol']}")
+    if not (param_excess <= 0 and stats_excess <= 0):
+        raise AssertionError(f"after the steps, weights differ from the "
+                             f"plain-attention path by up to {param_err} and"
+                             f" BN statistics by up to {stats_err}")
     return result, {name: (lambda p=p: drive(p, 1))
                     for name, p in paths.items()}
+
+
+def pallas_bf16_phase(torch, requests, card: str, outs_f32):
+    """MODEL.attention pallas_bf16 on the model's path, in each compute
+    dtype: two requests served (against the float32 slice's outputs at the
+    JAX package's bfloat16 bars) and one train step of the flagship recipe,
+    whose loss and projection gradients are held against the same step
+    through the eager attention at the bfloat16 TRAIN_BARS; returns the
+    launches by mode."""
+    from hupr_tpu_torch.config import (flagship_serving_config,
+                                       flagship_training_config)
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                             make_train_step)
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    reqs = requests[:2]
+    result = {"card": card, "requests": len(reqs)}
+    launches = {}
+    for compute in ("float32", "bfloat16"):
+        mode = ("bf16" if compute == "bfloat16" else "f32") + "_bf16ops"
+        cfg = flagship_serving_config()
+        cfg.MODEL.computeDtype, cfg.MODEL.attention = compute, "pallas_bf16"
+        model = build_model(cfg)
+        ds = cfg.DATASET
+        run = make_e2e_infer(model, synthetic_state_dict(model, seed=0,
+                                                         scale=0.03),
+                             ds.radar_params(), duration=FRAMES,
+                             group=ds.numGroupFrames,
+                             num_frames=ds.numFrames)
+        attention.reset_launch_counts()
+        outs = [run(*req) for req in reqs]
+        torch.cuda.synchronize()
+        serve_fwd = dict(attention.attention_fwd.launches_by_mode)
+        err, agree = decode_vs(outs, outs_f32[:len(reqs)])
+        del model, run
+
+        cfg = flagship_training_config()
+        cfg.MODEL.computeDtype = compute
+        t, ds = cfg.TRAINING, cfg.DATASET
+        batch = bench_batch(torch, cfg)
+        steps = {}
+        for impl in ("pallas_bf16", "xla"):
+            cfg.MODEL.attention = impl
+            model = build_model(cfg)
+            if impl == "pallas_bf16":
+                weights = synthetic_state_dict(model, seed=0, scale=0.03)
+            model.load_state_dict(weights, strict=True)
+            tx = make_optimizer(cfg, model)
+            step = make_train_step(model, tx, t.lossDecay, (
+                ds.numKeypoints, ds.heatmapSize, ds.imgSize))
+            attention.reset_launch_counts()
+            _, metrics = step(TrainState(model, tx), batch, t.lr, 0.0)
+            steps[impl] = (metrics["loss"].item(),
+                           projection_grads(torch, model),
+                           (dict(attention.attention_fwd.launches_by_mode),
+                            dict(attention.attention_bwd.launches_by_mode)))
+            del model, tx, step, metrics
+        del batch, weights
+        (loss, grads, train), (loss_x, grads_x, train_x) = steps.values()
+        loss_rel = abs(loss - loss_x) / abs(loss_x)
+        grad_rel = rel_err(grads, grads_x)
+        del steps, grads, grads_x
+        result[compute] = {"mode": mode, "serve_attention_fwd": serve_fwd,
+                           "maxvals_max_abs_err_vs_f32": err,
+                           "keypoint_agreement_vs_f32": agree,
+                           "train_launches": train, "train_loss": loss,
+                           "train_loss_xla": loss_x,
+                           "loss_rel_err_vs_xla": loss_rel,
+                           "projection_grad_rel_err_vs_xla": grad_rel}
+        launches[mode] = {"fwd": serve_fwd.get(mode, 0)
+                          + train[0].get(mode, 0),
+                          "bwd": train[1].get(mode, 0)}
+        if serve_fwd != {mode: 12 * len(reqs)} or \
+                train != ({mode: 12}, {mode: 12}) or train_x != ({}, {}):
+            raise AssertionError(f"pallas_bf16 {compute}: launches {serve_fwd}"
+                                 f" serving, {train} training ({train_x} "
+                                 f"through the eager attention); expected "
+                                 f"mode {mode} only")
+        bars = TRAIN_BARS["bf16"]
+        if not (math.isfinite(loss) and err <= HEATMAP_TOL_VS_F32
+                and agree >= DECODE_AGREE_VS_F32
+                and loss_rel <= bars["loss_rtol"]
+                and grad_rel <= bars["proj_grad_rel"]):
+            raise AssertionError(f"pallas_bf16 {compute}: {result[compute]}")
+    print(json.dumps({"pallas_bf16": result}), flush=True)
+    return launches
+
+
+def microbench_phase(torch, peaks):
+    """The unfolded forward against its twin (float32 and bf16_ops) at the
+    microbenchmark's shape, then the port's microbenchmark itself, whose
+    unfolded launches are counted; returns the per-mode results, the
+    launches and the microbenchmark's times."""
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.scripts.attn_microbench import run as microbench
+    from hupr_tpu_torch.utils.device import float32_math
+
+    b, n, c = MICRO_SHAPE
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    k, q, m = unit_spread(torch, gen, MICRO_SHAPE, torch.float32, 3)
+    kb, qb, mb = (t.to(torch.bfloat16) for t in (k, q, m))
+    rows = {}
+    for mode, ops in (("f32", False), ("f32_bf16ops", True)):
+        with torch.inference_mode(), float32_math():
+            got = attention.attention_fwd_unfolded(k, q, m, bf16_ops=ops)
+            want = attention.attention_unfolded_plain(k, q, m, ops)
+            ideal = attention.attention_unfolded_plain(*operand_values(
+                torch, (k, q, m), ops))
+            torch.cuda.synchronize()
+            row = {"max_abs_err": (got - want).abs().max().item(),
+                   "rel_err_vs_twin": rel_err(got, want),
+                   "rel_err_vs_ideal": rel_err(got, ideal)}
+            del got, want, ideal
+            row["kernel_ms"] = cuda_ms(
+                torch, lambda: attention.attention_fwd_unfolded(
+                    k, q, m, bf16_ops=ops), 10)
+            row["plain_ms"] = cuda_ms(
+                torch, lambda: attention.attention_unfolded_plain(
+                    k, q, m, ops), 5)
+            lib = (qb, kb, mb) if ops else (q, k, m)
+            row["library_ms"] = cuda_ms(torch, lambda: sdpa(*lib), 10)
+        row["bound_ms"], row["bound_by"] = attention_bound(
+            "unfolded", b, n, c, mode, peaks)
+        rows[mode] = row
+        if ops:
+            check_bf16_rel(f"attention_fwd_unfolded {mode}", row)
+        elif not row["max_abs_err"] <= ATTN_TOL:
+            raise AssertionError(f"attention_fwd_unfolded: max abs error "
+                                 f"{row['max_abs_err']} > {ATTN_TOL}")
+    del k, q, m, kb, qb, mb
+    attention.reset_launch_counts()
+    times = microbench(b, n, c, inner=5, reps=2)
+    launches = dict(attention.attention_fwd_unfolded.launches_by_mode)
+    print(json.dumps({"microbench": {"B": b, "N": n, "C": c,
+                                     "unfolded": rows, "times_ms": times,
+                                     "unfolded_launches": launches}}),
+          flush=True)
+    if set(launches) != {"f32", "f32_bf16ops"}:
+        raise AssertionError(f"the microbenchmark launched the unfolded "
+                             f"forward {launches}")
+    return rows, launches, times
+
+
+def kernel_entry(name, mode, source, replaces, launches, rows, scale, per,
+                 **extra):
+    """One object of the `kernels` line: times and bounds summed over
+    `rows` (per-shape dicts), each taken `scale` times."""
+    total = {key: scale * sum(r[key] for r in rows)
+             for key in ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+    return {"name": name, "mode": mode, "route": "cuda",
+            "source": f"hupr_tpu_torch/csrc/{source}.cu",
+            "replaces": replaces, "launches": sum(launches.values()),
+            "launches_by_path": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in rows),
+            "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
+            "bound_ms": total["bound_ms"],
+            # what bounds the shape that takes most of the bound's time
+            "bound_by": max(rows, key=lambda r: r["bound_ms"])["bound_by"],
+            "library_ms": total["library_ms"], "per": per, **extra}
 
 
 def main() -> int:
@@ -468,6 +982,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hupr_tpu_torch.config import fast_serving_config, fast_training_config
     from hupr_tpu_torch.ops.cuda_build import build
 
     smi = smi_line()
@@ -480,11 +995,11 @@ def main() -> int:
     print(f"process-wide cudnn.allow_tf32="
           f"{torch.backends.cudnn.allow_tf32} matmul.allow_tf32="
           f"{torch.backends.cuda.matmul.allow_tf32}", flush=True)
-    variant, (peak_flops, peak_bytes) = card_peaks(
-        torch.cuda.get_device_name(0))
-    print(f"bound uses H100 {variant} data-sheet peaks: "
-          f"{peak_flops / 1e12} TFLOP/s float32, "
-          f"{peak_bytes / 1e12} TB/s", flush=True)
+    variant, peaks = card_peaks(torch.cuda.get_device_name(0))
+    print(f"bound uses H100 {variant} peaks: {peaks['f32'] / 1e12} TFLOP/s "
+          f"float32, {peaks['bf16'] / 1e12} TFLOP/s bfloat16 tensor, "
+          f"{peaks['sfu'] / 1e12:.3f} T exp/s, {peaks['bytes'] / 1e12} TB/s",
+          flush=True)
 
     # one nvcc per source, all started together
     t0 = time.perf_counter()
@@ -497,52 +1012,79 @@ def main() -> int:
                                        "spill", "error")):
                 print(f"  {name}: {line.strip()}", flush=True)
 
-    rows = check_attention(torch, peak_flops, peak_bytes)
-    bwd_rows = check_attention_bwd(torch, peak_flops, peak_bytes)
+    rows = check_attention(torch, peaks)
+    bwd_rows = check_attention_bwd(torch, peaks)
+    mode_rows = check_attention_modes(torch, peaks)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     shape = (FRAMES, 4, 192, 256)
     requests = [tuple(torch.randint(-300, 300, shape, generator=gen,
                                     device="cuda", dtype=torch.int16)
                       for _ in range(4)) for _ in range(REQUESTS)]
-    sl, run = serve_slice(torch, requests, smi)
+    sl, run, outs_f32 = serve_slice(torch, requests, smi)
     profile(torch, "serve", lambda: run(*requests[0]))
-    del requests, run
+    del run
+    sl16, run, _ = serve_slice(torch, requests, smi, fast_serving_config(),
+                               "slice_bf16", "bf16", MAXVAL_TOL_BF16,
+                               vs_f32=outs_f32)
+    profile(torch, "serve_bf16", lambda: run(*requests[0]))
+    del run
     tr, one_step = train_slice(torch, smi)
     # every kernel of the step, so that the two paths can be compared
     profile(torch, "train", one_step["pallas"], top=200)
     profile(torch, "train_plain_attention", one_step["xla"], top=200)
-
-    def row(name, rows, launches, per):
-        # per request or per step: 4 launches at each shape
-        total = {key: 4 * sum(r[key] for r in rows)
-                 for key in ("kernel_ms", "plain_ms", "library_ms",
-                             "bound_ms")}
-        return {
-            "name": name, "route": "cuda",
-            "source": f"hupr_tpu_torch/csrc/{name}.cu",
-            "replaces": {"attention_fwd": "hupr_tpu/ops/attention.py:90",
-                         "attention_bwd": "hupr_tpu/ops/attention.py:188",
-                         }[name],
-            "launches": sum(launches.values()), "launches_by_path": launches,
-            "max_abs_err": max(r["max_abs_err"] for r in rows),
-            "ms": total["kernel_ms"], "plain_ms": total["plain_ms"],
-            "bound_ms": total["bound_ms"],
-            "bound_by": "operations" if all(r["bound_by"] == "operations"
-                                            for r in rows) else "bytes",
-            "library_ms": total["library_ms"], "per": per}
+    del one_step
+    tr16, one_step = train_slice(torch, smi, fast_training_config,
+                                 "train_bf16", "bf16")
+    profile(torch, "train_bf16", one_step["pallas"], top=200)
+    profile(torch, "train_bf16_plain_attention", one_step["xla"], top=200)
+    del one_step
+    ops_launches = pallas_bf16_phase(torch, requests, smi, outs_f32)
+    del requests, outs_f32
+    micro_rows, micro_launches, _ = microbench_phase(torch, peaks)
 
     shapes = "4 at each (N, C) of (256, 256), (1024, 128), (4096, 64)"
+    per_request = f"one request: 12 launches, {shapes}, B={ATTN_BATCH}"
+    per_step = f"one train step: 12 launches, {shapes}, B={TRAIN_BATCH}"
+    fwd_src, bwd_src = "hupr_tpu/ops/attention.py:90", \
+        "hupr_tpu/ops/attention.py:188"
+    entries = [
+        kernel_entry("attention_fwd", "f32", "attention_fwd", fwd_src,
+                     {"serve": sl["attention_launches"],
+                      "train": tr["attention_fwd_launches"]}, rows, 4,
+                     per_request),
+        kernel_entry("attention_bwd", "f32", "attention_bwd", bwd_src,
+                     {"serve": 0, "train": tr["attention_bwd_launches"]},
+                     bwd_rows, 4, per_step),
+    ]
+    for mode, _, _ in BF16_MODES:
+        mine = [r for r in mode_rows if r["mode"] == mode]
+        if mode == "bf16":
+            fwd_launches = {"serve_bf16": sl16["attention_launches"],
+                            "train_bf16": tr16["attention_fwd_launches"]}
+            bwd_launches = {"train_bf16": tr16["attention_bwd_launches"]}
+        else:
+            fwd_launches = {"pallas_bf16": ops_launches[mode]["fwd"]}
+            bwd_launches = {"pallas_bf16": ops_launches[mode]["bwd"]}
+        with_lse = [r["fwd_with_lse_B20"] for r in mine]
+        entries.append(kernel_entry(
+            f"attention_fwd_{mode}", mode, "attention_fwd", fwd_src,
+            fwd_launches, [r["fwd_B32"] for r in mine], 4, per_request,
+            with_lse_per_step={key: 4 * sum(r[key] for r in with_lse)
+                               for key in ("kernel_ms", "plain_ms",
+                                           "library_ms", "bound_ms")}))
+        entries.append(kernel_entry(
+            f"attention_bwd_{mode}", mode, "attention_bwd", bwd_src,
+            bwd_launches, [r["bwd_B20"] for r in mine], 4, per_step))
+    micro_src = "scripts/attn_microbench.py:73"
+    for mode, suffix in (("f32", ""), ("f32_bf16ops", "_bf16ops")):
+        entries.append(kernel_entry(
+            f"attention_fwd_unfolded{suffix}", mode, "attention_fwd_unfolded",
+            micro_src, {"microbench": micro_launches.get(mode, 0)},
+            [micro_rows[mode]], 1,
+            f"one call at (B, N, C) = {MICRO_SHAPE}"))
     print(f"card: {smi}", flush=True)
-    print(json.dumps({"kernels": [
-        row("attention_fwd", rows,
-            {"serve": sl["attention_launches"],
-             "train": tr["attention_fwd_launches"]},
-            f"one request: 12 launches, {shapes}, B={ATTN_BATCH}"),
-        row("attention_bwd", bwd_rows,
-            {"serve": 0, "train": tr["attention_bwd_launches"]},
-            f"one train step: 12 launches, {shapes}, B={TRAIN_BATCH}"),
-    ]}), flush=True)
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -64,9 +64,11 @@ class DatasetConfig:
 @dataclass
 class ModelConfig:
     numFilters: int = 32
-    computeDtype: str = "float32"   # "bfloat16" is not ported yet
+    computeDtype: str = "float32"   # "float32" | "bfloat16" conv/matmul compute
     remat: bool = False
-    attention: str = "xla"          # "xla" eager | "pallas" Hopper kernel
+    # "xla" eager | "pallas" Hopper kernels | "pallas_bf16" the kernels with
+    # bfloat16 operands and float32 accumulation
+    attention: str = "xla"
 
 
 @dataclass
@@ -184,4 +186,30 @@ def flagship_training_config() -> Config:
         batchSize=20, epochs=200, lr=1e-4, warmupEpoch=-1,
         warmupGrowth=1.005, lrDecay=0.999, lrDecayIter=2000, lossDecay=-1,
         optimizer="adam", weightDecay=1e-4)
+    return cfg
+
+
+def fast_serving_config() -> Config:
+    """`config/mscsa_prgcn_tpu_fast.yaml` built without PyYAML: the
+    flagship with MODEL.computeDtype bfloat16 and the YAML's raw-ADC and
+    wire-format fields (which the serving path and the train step do not
+    read). The split lists are left empty."""
+    cfg = flagship_serving_config()
+    cfg.DATASET.adcDir = "preprocessing/raw_data/iwr1843/HuPR"
+    cfg.MODEL = ModelConfig(numFilters=32, attention="pallas",
+                            computeDtype="bfloat16")
+    cfg.TEST = TestConfig(sequenceSource="adc")
+    cfg.SETUP = SetupConfig(transferDtype="bfloat16")
+    return cfg
+
+
+def fast_training_config() -> Config:
+    """`config/mscsa_prgcn_tpu_fast.yaml`'s model and training recipe built
+    without PyYAML: the flagship recipe (batch 20, Adam at lr 1e-4) with
+    bfloat16 compute, and the YAML's chunkTrain / chunkSource fields, which
+    the train step does not read."""
+    cfg = fast_serving_config()
+    cfg.TRAINING = flagship_training_config().TRAINING
+    cfg.TRAINING.chunkTrain = True
+    cfg.TRAINING.chunkSource = "adc"
     return cfg

@@ -1,4 +1,5 @@
-// Backward MSCSA spatial attention for Hopper (sm_90a), full float32.
+// Backward MSCSA spatial attention for Hopper (sm_90a), float32 arithmetic
+// on float32 or bfloat16 inputs.
 //
 // The forward (attention_fwd.cu) computes, per batch b and query j,
 //   s_ij = k_i . q_j,   p_ij = exp(s_ij - lse_j),   out_j = sum_i p_ij m_i
@@ -8,7 +9,10 @@
 //   dP_ij = m_i . g_j,   D_j = g_j . out_j  (= sum_i p_ij dP_ij)
 //   dS_ij = p_ij (dP_ij - D_j)
 //   dq_j  = sum_i dS_ij k_i,   dk_i = sum_j dS_ij q_j
-// on contiguous (B, N, C) float32 tensors, with lse (B, N) from the forward.
+// on contiguous (B, N, C) tensors of one element type `In` (float or
+// __nv_bfloat16), with lse (B, N) float32 from the forward. dq, dk and dm
+// are accumulated in float32 registers over every tile and written in `In`,
+// rounded once; the D vector is float32 in every mode.
 //
 // Replaces the TPU kernel hupr_tpu/ops/attention.py:_attention_bwd_pallas
 // (body _make_bwd_kernel). Same algebra: with a = p/s there, t/s is dS and
@@ -23,20 +27,45 @@
 //   (b) one block per (key tile, batch): stream query tiles with their lse
 //       and D; accumulate dk_i and dm_i in registers.
 // Both recompute s and dP per tile pair (7 products of 2*N*N*C flops each,
-// against the 5 of the TPU kernel) and never write an (N, N) array.
+// against the 5 of the TPU kernel) and never write an (N, N) array. Since
+// each block owns the dk and dm rows it writes and sums them over all query
+// tiles in float32 registers, the gradients are rounded to `In` once at the
+// end, the property the TPU kernel gets from its float32 outputs (its _bwd
+// casts dk and dm once).
 //
-// Bound: 10*B*N^2*C flops (5 products) against 32*B*N*C bytes, so it is
-// bound by operations. It runs FMAs on the float32 (non-tensor) pipes so
-// that it meets the float32 reference's 1e-3 gradient bar; tensor cores
-// (wgmma, TMA) come later. Tiles: T = 64 queries and keys at C = 64, 128;
-// T = 32 at C = 256, where four (64, 257) float tiles would not fit in a
-// block's 227 KB of shared memory and pass (b)'s two (T, C) accumulators
-// would take 128 registers a thread.
+// Modes, those of the TPU kernel: float32 inputs; bfloat16 inputs
+// (MODEL.computeDtype bfloat16), where every product runs on the inputs'
+// float32 values; and the mxu_bf16 branch (OPS = true, MODEL.attention
+// pallas_bf16, on float32 or bfloat16 inputs): k, q, m and g are rounded to
+// bfloat16 on load, and p and dS are rounded to bfloat16 before the dm, dk
+// and dq products. The TPU kernel also rounds 1/s and the products q/s and
+// g/s to bfloat16; here the normalization rides on p = exp(s - lse) in
+// float32. And it sums D_j from its float32 p and dP, where this kernel
+// takes g_j . out_j from the forward's out, which bfloat16 inputs round to
+// bfloat16. Both are differences at bfloat16's rounding level.
+//
+// Bound: 10*B*N^2*C flops (5 products) against 32*B*N*C bytes (half in
+// bfloat16), so it is bound by operations. It runs FMAs on the float32
+// (non-tensor) pipes in every mode, which meets the float32 reference's
+// 1e-3 gradient bar; a bf16 x bf16 product is exact in float32, so on
+// bfloat16 operands they compute what the tensor cores would, summed in
+// another order. Tensor cores (wgmma, TMA) come later. Tiles: T = 64
+// queries and keys at C = 64, 128; T = 32 at C = 256, where four (64, 257)
+// float tiles would not fit in a block's 227 KB of shared memory and pass
+// (b)'s two (T, C) accumulators would take 128 registers a thread. The K,
+// Q, M and G tiles hold bfloat16 when the inputs are bfloat16 or are
+// rounded to it, rows padded by two elements (4-byte aligned, an odd
+// number of 32-bit words apart); float tiles are padded by one float.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include <type_traits>
+
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int NT = 256;     // threads per block
 constexpr int LANES = 16;   // threads sharing one tile row (half a warp)
@@ -45,16 +74,47 @@ constexpr int ROWS = NT / LANES;  // row groups (16)
 template <int C>
 __host__ __device__ constexpr int tile() { return C == 256 ? 32 : 64; }
 
-template <int C>
-constexpr size_t dq_smem_bytes() {
-  constexpr size_t T = tile<C>();
-  return sizeof(float) * (4 * T * (C + 1) + T * (T + 1));
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_f32(float x) {
+  if constexpr (std::is_same_v<T, float>) {
+    return x;
+  } else {
+    return __float2bfloat16_rn(x);
+  }
 }
 
-template <int C>
-constexpr size_t dkdm_smem_bytes() {
+__device__ __forceinline__ float round_bf16(float x) {
+  return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Element type of the K, Q, M and G tiles: float in full float32, bfloat16
+// when the inputs are bfloat16 or are rounded to it on load.
+template <typename In, bool OPS>
+using TileT = std::conditional_t<std::is_same_v<In, float> && !OPS, float,
+                                 bf16>;
+
+template <typename S, int C>
+__host__ __device__ constexpr int row_stride() {
+  return C + (sizeof(S) == 4 ? 1 : 2);
+}
+
+template <int C, typename In, bool OPS>
+constexpr size_t dq_smem_bytes() {
+  using S = TileT<In, OPS>;
   constexpr size_t T = tile<C>();
-  return sizeof(float) * (4 * T * (C + 1) + 2 * T * (T + 1) + 2 * T);
+  return sizeof(float) * T * (T + 1) +
+         sizeof(S) * 4 * T * row_stride<S, C>();
+}
+
+template <int C, typename In, bool OPS>
+constexpr size_t dkdm_smem_bytes() {
+  using S = TileT<In, OPS>;
+  constexpr size_t T = tile<C>();
+  return sizeof(float) * (2 * T * (T + 1) + 2 * T) +
+         sizeof(S) * 4 * T * row_stride<S, C>();
 }
 
 __device__ __forceinline__ float half_warp_sum(float v) {
@@ -64,46 +124,48 @@ __device__ __forceinline__ float half_warp_sum(float v) {
   return v;
 }
 
-// Stage rows r0 .. r0+T-1 of a (n, C) panel into a (T, C+1) tile, zeros
-// beyond row n.
-template <int C, int T>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      size_t base, int r0, int n) {
+// Stage rows r0 .. r0+T-1 of a (n, C) panel into a (T, row_stride) tile of
+// S, zeros beyond row n (rounded to bfloat16 where S is bfloat16).
+template <int C, int T, typename S, typename In>
+__device__ __forceinline__ void stage(S* dst, const In* src, size_t base,
+                                      int r0, int n) {
+  constexpr int QS = row_stride<S, C>();
   for (int e = threadIdx.x; e < T * C; e += NT) {
     const int r = e / C, c = e % C;
-    dst[r * (C + 1) + c] =
-        (r0 + r < n) ? src[base + size_t(r0 + r) * C + c] : 0.f;
+    dst[r * QS + c] = from_f32<S>(
+        (r0 + r < n) ? to_f32(src[base + size_t(r0 + r) * C + c]) : 0.f);
   }
 }
 
 // Thread t owns tile rows rg + 16*i and columns cg + 16*j, rg = t / 16,
-// cg = t % 16, as in the forward kernel. Tile rows are padded by one float,
-// so the column walks below read 16 distinct banks.
+// cg = t % 16, as in the forward kernel. Tile rows are padded, so the
+// column walks below read 16 distinct banks.
 
 // Pass (a): dq and D for one (query tile, batch).
-template <int C>
+template <int C, typename In, bool OPS>
 __global__ void __launch_bounds__(NT)
-attention_bwd_dq_kernel(const float* __restrict__ k,
-                        const float* __restrict__ q,
-                        const float* __restrict__ m,
-                        const float* __restrict__ out,
+attention_bwd_dq_kernel(const In* __restrict__ k,
+                        const In* __restrict__ q,
+                        const In* __restrict__ m,
+                        const In* __restrict__ out,
                         const float* __restrict__ lse,
-                        const float* __restrict__ g,
-                        float* __restrict__ dq, float* __restrict__ dvec,
+                        const In* __restrict__ g,
+                        In* __restrict__ dq, float* __restrict__ dvec,
                         int n) {
+  using S = TileT<In, OPS>;
   constexpr int T = tile<C>();
   constexpr int TM = T / ROWS;    // query rows per thread
   constexpr int TS = T / LANES;   // key columns per thread
   constexpr int TN = C / LANES;   // output columns per thread
-  constexpr int QS = C + 1;
+  constexpr int QS = row_stride<S, C>();
   constexpr int PS = T + 1;
 
-  extern __shared__ float smem[];
-  float* qs = smem;               // T x QS queries
-  float* gs = qs + T * QS;        // T x QS output gradients
-  float* ks = gs + T * QS;        // T x QS keys
-  float* ms = ks + T * QS;        // T x QS values
-  float* ds = ms + T * QS;        // T x PS dS
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ds = reinterpret_cast<float*>(smem_raw);   // T x PS dS
+  S* qs = reinterpret_cast<S*>(ds + T * PS);        // T x QS queries
+  S* gs = qs + T * QS;            // T x QS output gradients
+  S* ks = gs + T * QS;            // T x QS keys
+  S* ms = ks + T * QS;            // T x QS values
 
   const int tid = threadIdx.x;
   const int cg = tid % LANES;
@@ -126,8 +188,9 @@ attention_bwd_dq_kernel(const float* __restrict__ k,
     if (ok) {
 #pragma unroll
       for (int t = 0; t < TN; ++t)
-        part = fmaf(gs[row * QS + cg + 16 * t],
-                    out[base + size_t(q0 + row) * C + cg + 16 * t], part);
+        part = fmaf(to_f32(gs[row * QS + cg + 16 * t]),
+                    to_f32(out[base + size_t(q0 + row) * C + cg + 16 * t]),
+                    part);
     }
     dj[i] = half_warp_sum(part);
     lj[i] = ok ? lse[vbase + q0 + row] : 0.f;
@@ -157,13 +220,13 @@ attention_bwd_dq_kernel(const float* __restrict__ k,
       float qv[TM], gv[TM], kv[TS], mv[TS];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        qv[i] = qs[(rg + ROWS * i) * QS + c];
-        gv[i] = gs[(rg + ROWS * i) * QS + c];
+        qv[i] = to_f32(qs[(rg + ROWS * i) * QS + c]);
+        gv[i] = to_f32(gs[(rg + ROWS * i) * QS + c]);
       }
 #pragma unroll
       for (int j = 0; j < TS; ++j) {
-        kv[j] = ks[(cg + LANES * j) * QS + c];
-        mv[j] = ms[(cg + LANES * j) * QS + c];
+        kv[j] = to_f32(ks[(cg + LANES * j) * QS + c]);
+        mv[j] = to_f32(ms[(cg + LANES * j) * QS + c]);
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -180,7 +243,8 @@ attention_bwd_dq_kernel(const float* __restrict__ k,
       for (int j = 0; j < TS; ++j) {
         const int col = cg + LANES * j;
         const float p = (k0 + col < n) ? expf(s[i][j] - lj[i]) : 0.f;
-        ds[(rg + ROWS * i) * PS + col] = p * (dp[i][j] - dj[i]);
+        const float d = p * (dp[i][j] - dj[i]);
+        ds[(rg + ROWS * i) * PS + col] = OPS ? round_bf16(d) : d;
       }
     __syncthreads();
 
@@ -191,7 +255,8 @@ attention_bwd_dq_kernel(const float* __restrict__ k,
 #pragma unroll
       for (int i = 0; i < TM; ++i) dv[i] = ds[(rg + ROWS * i) * PS + kk];
 #pragma unroll
-      for (int t = 0; t < TN; ++t) kv[t] = ks[kk * QS + cg + LANES * t];
+      for (int t = 0; t < TN; ++t)
+        kv[t] = to_f32(ks[kk * QS + cg + LANES * t]);
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
@@ -205,37 +270,38 @@ attention_bwd_dq_kernel(const float* __restrict__ k,
     if (row >= n) continue;
 #pragma unroll
     for (int t = 0; t < TN; ++t)
-      dq[base + size_t(row) * C + cg + LANES * t] = acc[i][t];
+      dq[base + size_t(row) * C + cg + LANES * t] = from_f32<In>(acc[i][t]);
   }
 }
 
 // Pass (b): dk and dm for one (key tile, batch).
-template <int C>
+template <int C, typename In, bool OPS>
 __global__ void __launch_bounds__(NT)
-attention_bwd_dkdm_kernel(const float* __restrict__ k,
-                          const float* __restrict__ q,
-                          const float* __restrict__ m,
+attention_bwd_dkdm_kernel(const In* __restrict__ k,
+                          const In* __restrict__ q,
+                          const In* __restrict__ m,
                           const float* __restrict__ lse,
-                          const float* __restrict__ g,
+                          const In* __restrict__ g,
                           const float* __restrict__ dvec,
-                          float* __restrict__ dk, float* __restrict__ dm,
+                          In* __restrict__ dk, In* __restrict__ dm,
                           int n) {
+  using S = TileT<In, OPS>;
   constexpr int T = tile<C>();
   constexpr int TM = T / ROWS;    // key rows per thread
   constexpr int TS = T / LANES;   // query columns per thread
   constexpr int TN = C / LANES;   // output columns per thread
-  constexpr int QS = C + 1;
+  constexpr int QS = row_stride<S, C>();
   constexpr int PS = T + 1;
 
-  extern __shared__ float smem[];
-  float* ks = smem;               // T x QS keys
-  float* ms = ks + T * QS;        // T x QS values
-  float* qs = ms + T * QS;        // T x QS queries
-  float* gs = qs + T * QS;        // T x QS output gradients
-  float* ps = gs + T * QS;        // T x PS p
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* ps = reinterpret_cast<float*>(smem_raw);   // T x PS p
   float* ds = ps + T * PS;        // T x PS dS
   float* ls = ds + T * PS;        // T      lse of the query tile
   float* dl = ls + T;             // T      D of the query tile
+  S* ks = reinterpret_cast<S*>(dl + T);             // T x QS keys
+  S* ms = ks + T * QS;            // T x QS values
+  S* qs = ms + T * QS;            // T x QS queries
+  S* gs = qs + T * QS;            // T x QS output gradients
 
   const int tid = threadIdx.x;
   const int cg = tid % LANES;
@@ -275,13 +341,13 @@ attention_bwd_dkdm_kernel(const float* __restrict__ k,
       float kv[TM], mv[TM], qv[TS], gv[TS];
 #pragma unroll
       for (int i = 0; i < TM; ++i) {
-        kv[i] = ks[(rg + ROWS * i) * QS + c];
-        mv[i] = ms[(rg + ROWS * i) * QS + c];
+        kv[i] = to_f32(ks[(rg + ROWS * i) * QS + c]);
+        mv[i] = to_f32(ms[(rg + ROWS * i) * QS + c]);
       }
 #pragma unroll
       for (int j = 0; j < TS; ++j) {
-        qv[j] = qs[(cg + LANES * j) * QS + c];
-        gv[j] = gs[(cg + LANES * j) * QS + c];
+        qv[j] = to_f32(qs[(cg + LANES * j) * QS + c]);
+        gv[j] = to_f32(gs[(cg + LANES * j) * QS + c]);
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -298,8 +364,9 @@ attention_bwd_dkdm_kernel(const float* __restrict__ k,
       for (int j = 0; j < TS; ++j) {
         const int col = cg + LANES * j;
         const float p = (j0 + col < n) ? expf(s[i][j] - ls[col]) : 0.f;
-        ps[(rg + ROWS * i) * PS + col] = p;
-        ds[(rg + ROWS * i) * PS + col] = p * (dp[i][j] - dl[col]);
+        const float d = p * (dp[i][j] - dl[col]);
+        ps[(rg + ROWS * i) * PS + col] = OPS ? round_bf16(p) : p;
+        ds[(rg + ROWS * i) * PS + col] = OPS ? round_bf16(d) : d;
       }
     __syncthreads();
 
@@ -314,8 +381,8 @@ attention_bwd_dkdm_kernel(const float* __restrict__ k,
       }
 #pragma unroll
       for (int t = 0; t < TN; ++t) {
-        gv[t] = gs[jj * QS + cg + LANES * t];
-        qv[t] = qs[jj * QS + cg + LANES * t];
+        gv[t] = to_f32(gs[jj * QS + cg + LANES * t]);
+        qv[t] = to_f32(qs[jj * QS + cg + LANES * t]);
       }
 #pragma unroll
       for (int i = 0; i < TM; ++i)
@@ -334,19 +401,19 @@ attention_bwd_dkdm_kernel(const float* __restrict__ k,
 #pragma unroll
     for (int t = 0; t < TN; ++t) {
       const size_t at = base + size_t(row) * C + cg + LANES * t;
-      dk[at] = dk_acc[i][t];
-      dm[at] = dm_acc[i][t];
+      dk[at] = from_f32<In>(dk_acc[i][t]);
+      dm[at] = from_f32<In>(dm_acc[i][t]);
     }
   }
 }
 
-template <int C>
-cudaError_t launch(const float* k, const float* q, const float* m,
-                   const float* out, const float* lse, const float* g,
-                   float* dk, float* dq, float* dm, float* dvec, int b, int n,
+template <int C, typename In, bool OPS>
+cudaError_t launch(const void* k, const void* q, const void* m,
+                   const void* out, const float* lse, const void* g,
+                   void* dk, void* dq, void* dm, float* dvec, int b, int n,
                    cudaStream_t stream) {
-  constexpr size_t smem_a = dq_smem_bytes<C>();
-  constexpr size_t smem_b = dkdm_smem_bytes<C>();
+  constexpr size_t smem_a = dq_smem_bytes<C, In, OPS>();
+  constexpr size_t smem_b = dkdm_smem_bytes<C, In, OPS>();
   static_assert(smem_a <= 232448 && smem_b <= 232448,
                 "tile exceeds a Hopper block's shared memory");
   // the shared-memory limit is an attribute of each kernel on each device:
@@ -358,60 +425,78 @@ cudaError_t launch(const float* k, const float* q, const float* m,
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (!configured[dev]) {
-    err = cudaFuncSetAttribute(attention_bwd_dq_kernel<C>,
+    err = cudaFuncSetAttribute(attention_bwd_dq_kernel<C, In, OPS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(smem_a));
     if (err != cudaSuccess) return err;
-    err = cudaFuncSetAttribute(attention_bwd_dkdm_kernel<C>,
+    err = cudaFuncSetAttribute(attention_bwd_dkdm_kernel<C, In, OPS>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                int(smem_b));
     if (err != cudaSuccess) return err;
     configured[dev] = true;
   }
+  const In* kt = static_cast<const In*>(k);
+  const In* qt = static_cast<const In*>(q);
+  const In* mt = static_cast<const In*>(m);
+  const In* gt = static_cast<const In*>(g);
   constexpr int T = tile<C>();
   const dim3 grid((n + T - 1) / T, b);
-  attention_bwd_dq_kernel<C><<<grid, NT, smem_a, stream>>>(
-      k, q, m, out, lse, g, dq, dvec, n);
+  attention_bwd_dq_kernel<C, In, OPS><<<grid, NT, smem_a, stream>>>(
+      kt, qt, mt, static_cast<const In*>(out), lse, gt, static_cast<In*>(dq),
+      dvec, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdm_kernel<C><<<grid, NT, smem_b, stream>>>(
-      k, q, m, lse, g, dvec, dk, dm, n);
+  attention_bwd_dkdm_kernel<C, In, OPS><<<grid, NT, smem_b, stream>>>(
+      kt, qt, mt, lse, gt, dvec, static_cast<In*>(dk), static_cast<In*>(dm),
+      n);
   return cudaGetLastError();
+}
+
+template <typename In, bool OPS>
+cudaError_t dispatch(const void* k, const void* q, const void* m,
+                     const void* out, const float* lse, const void* g,
+                     void* dk, void* dq, void* dm, float* dvec, int b, int n,
+                     int c, cudaStream_t s) {
+  switch (c) {
+    case 64:
+      return launch<64, In, OPS>(k, q, m, out, lse, g, dk, dq, dm, dvec, b,
+                                 n, s);
+    case 128:
+      return launch<128, In, OPS>(k, q, m, out, lse, g, dk, dq, dm, dvec, b,
+                                  n, s);
+    case 256:
+      return launch<256, In, OPS>(k, q, m, out, lse, g, dk, dq, dm, dvec, b,
+                                  n, s);
+    default:
+      return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes. `dvec` is (B, N) float32 scratch that
-// pass (a) fills with D for pass (b). Returns a cudaError_t (0 on success);
-// allocates nothing and does not synchronize.
+// Plain C entry point for ctypes. k, q, m, out, g, dk, dq and dm are
+// float32 when `in_bf16` is 0 and bfloat16 when it is 1; `bf16_ops` selects
+// the mxu_bf16 rounding. `lse` is the forward's (B, N) float32 residual and
+// `dvec` (B, N) float32 scratch that pass (a) fills with D for pass (b).
+// Returns a cudaError_t (0 on success); allocates nothing and does not
+// synchronize.
 extern "C" int hupr_attention_bwd(const void* k, const void* q, const void* m,
                                   const void* out, const void* lse,
                                   const void* g, void* dk, void* dq, void* dm,
                                   void* dvec, int b, int n, int c,
-                                  void* stream) {
-  const float* kf = static_cast<const float*>(k);
-  const float* qf = static_cast<const float*>(q);
-  const float* mf = static_cast<const float*>(m);
-  const float* of = static_cast<const float*>(out);
+                                  int in_bf16, int bf16_ops, void* stream) {
   const float* lf = static_cast<const float*>(lse);
-  const float* gf = static_cast<const float*>(g);
-  float* dkf = static_cast<float*>(dk);
-  float* dqf = static_cast<float*>(dq);
-  float* dmf = static_cast<float*>(dm);
   float* dvf = static_cast<float*>(dvec);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || n <= 0) return int(cudaErrorInvalidValue);
-  switch (c) {
-    case 64:
-      return int(launch<64>(kf, qf, mf, of, lf, gf, dkf, dqf, dmf, dvf, b, n,
-                            s));
-    case 128:
-      return int(launch<128>(kf, qf, mf, of, lf, gf, dkf, dqf, dmf, dvf, b,
-                             n, s));
-    case 256:
-      return int(launch<256>(kf, qf, mf, of, lf, gf, dkf, dqf, dmf, dvf, b,
-                             n, s));
-    default:
-      return int(cudaErrorInvalidValue);
-  }
+  if (in_bf16)
+    return int(bf16_ops
+                   ? dispatch<bf16, true>(k, q, m, out, lf, g, dk, dq, dm,
+                                          dvf, b, n, c, s)
+                   : dispatch<bf16, false>(k, q, m, out, lf, g, dk, dq, dm,
+                                           dvf, b, n, c, s));
+  return int(bf16_ops ? dispatch<float, true>(k, q, m, out, lf, g, dk, dq, dm,
+                                              dvf, b, n, c, s)
+                      : dispatch<float, false>(k, q, m, out, lf, g, dk, dq,
+                                               dm, dvf, b, n, c, s));
 }

@@ -67,7 +67,8 @@ def make_e2e_infer(model, state=None, params: RadarParams = RadarParams(),
     view, each plane (F, RX=4, 192, ADC=256), int16 (the DCA1000's sample
     format) or float, numpy or torch. `state`, when given, is loaded into
     `model` strictly. Runs on the card unless `device` says otherwise, in
-    full float32 (TF32 off for the call)."""
+    the model's compute dtype where it has one (the chirp maps are windowed
+    in it) and in full float32 elsewhere (TF32 off for the call)."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
     if state is not None:

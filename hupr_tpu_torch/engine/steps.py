@@ -101,8 +101,10 @@ def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
     or torch in any float dtype, 'jointsGroup' (B, K, 2) image-space joints,
     and optionally 'mask' (B,). The caller advances alpha before each step
     (only read when lossDecay != -1). `geometry` = (numKeypoints,
-    heatmapSize, imgSize). The forward, backward and optimizer step run in
-    full float32 (TF32 off for the call). The model runs in train mode for
+    heatmapSize, imgSize). The forward and backward run in the model's
+    compute dtype where it has one and in full float32 elsewhere (TF32 off
+    for the call); gradients land on the float32 parameters, and the loss,
+    the metrics and the optimizer step are float32. The model runs in train mode for
     the step and returns to its previous mode after it. metrics are 0-d
     tensors on the card, {loss, loss1, loss2}."""
 
@@ -142,7 +144,8 @@ def make_eval_step(model: nn.Module, loss_decay: float = -1.0,
     (masked means when the batch has 'mask'), and from the GCN heatmap
     (the reference decodes preds2, misc/losses.py:43-44) 'pred2d' and
     'maxvals', 'gt2d' decoded from the targets, and 'predHeatmap'. The model
-    runs in eval mode, on its running BN statistics, in full float32."""
+    runs in eval mode, on its running BN statistics, in its compute dtype
+    (float32 math elsewhere); the outputs are float32."""
 
     def eval_step(state: TrainState, batch, alpha=0.0):
         if state.model is not model:

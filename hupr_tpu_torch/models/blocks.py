@@ -9,25 +9,68 @@ BatchNorm is torch's own, as in the reference: in eval mode (serving) it
 normalizes with the running statistics; in train mode with the biased batch
 variance, while it moves the running variance by the unbiased one at
 momentum 0.1, the JAX package's TorchBatchNorm semantics.
+
+A compute dtype (`compute_dtype`, flax's `dtype`): parameters stay float32,
+and each conv casts its input, weight and bias to it at use, so a bfloat16
+model runs bfloat16 convolutions whose gradients land on float32 weights.
+PReLU casts its slope to the input's dtype, as the JAX package does. BN keeps
+float32 parameters and statistics and returns the input's dtype; torch's
+own BN normalizes a bfloat16 input in float32 and rounds once, where the JAX
+package rounds after each of its four elementwise steps (the tests bound the
+difference).
 """
 
 from __future__ import annotations
 
+import torch
+import torch.nn.functional as F
 from torch import nn
 
 from hupr_tpu_torch.ops.resize import scale_by_factor
 
 
+class _CastConv:
+    """ConvNd whose forward runs in `compute_dtype` (in float32, `.to` hands
+    back the same tensors and this is the plain conv)."""
+
+    def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
+                 **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        bias = None if self.bias is None else self.bias.to(dt)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+
+
+class Conv2d(_CastConv, nn.Conv2d):
+    pass
+
+
+class Conv3d(_CastConv, nn.Conv3d):
+    pass
+
+
+class PReLU(nn.PReLU):
+    """nn.PReLU with its float32 slope cast to the input's dtype."""
+
+    def forward(self, x):
+        return F.prelu(x, self.weight.to(x.dtype))
+
+
 class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, ndim: int,
-                 batchnorm: bool = True, activation: str = "relu"):
+                 batchnorm: bool = True, activation: str = "relu",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        conv = {2: nn.Conv2d, 3: nn.Conv3d}[ndim]
+        conv = {2: Conv2d, 3: Conv3d}[ndim]
         norm = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[ndim]
-        act = {"relu": nn.ReLU, "prelu": nn.PReLU}[activation]
+        act = {"relu": nn.ReLU, "prelu": PReLU}[activation]
 
         def c3(cin, cout):
-            return conv(cin, cout, 3, 1, 1, bias=False)
+            return conv(cin, cout, 3, 1, 1, bias=False,
+                        compute_dtype=compute_dtype)
 
         if batchnorm:
             self.main = nn.Sequential(

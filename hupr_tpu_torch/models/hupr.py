@@ -12,6 +12,12 @@ reference's forward_chirp) and `pose_from_maps` (3-D encoders and decoder),
 so serving can encode each distinct frame once and window the F-channel
 maps. Both keep the JAX package's channels-last layout at their boundary;
 inside, the modules run NCDHW / NCHW.
+
+`compute_dtype` (MODEL.computeDtype) is flax's `dtype`:
+parameters and BN statistics stay float32, convolutions and projections run
+in it. The elevation mean stays float32; the chirp maps come out in the
+compute dtype; both heatmaps are float32 at the model's boundary, so the BCE
+and its gradient are float32 (hupr_tpu/models/hupr.py:90-95).
 """
 
 from __future__ import annotations
@@ -28,16 +34,18 @@ from hupr_tpu_torch.utils.device import resolve_device
 class HuPRNet(nn.Module):
     def __init__(self, num_filters: int = 32, num_frames: int = 8,
                  num_group_frames: int = 8, num_keypoints: int = 14,
-                 heatmap_size: int = 64, attn_impl: str = "xla"):
+                 heatmap_size: int = 64, attn_impl: str = "xla",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
-        f = num_filters
+        f, dt = num_filters, compute_dtype
         self.num_frames = num_frames
-        self.RAchirpNet = MNet(f)
-        self.REchirpNet = MNet(f)
-        self.RAradarEncoder = Encoder3D(f, num_group_frames)
-        self.REradarEncoder = Encoder3D(f, num_group_frames)
+        self.RAchirpNet = MNet(f, dt)
+        self.REchirpNet = MNet(f, dt)
+        self.RAradarEncoder = Encoder3D(f, num_group_frames, dt)
+        self.REradarEncoder = Encoder3D(f, num_group_frames, dt)
         self.radarDecoder = MSCSADecoder(f, num_keypoints, heatmap_size,
-                                         attn_impl=attn_impl)
+                                         attn_impl=attn_impl,
+                                         compute_dtype=dt)
 
     def _chirp_view(self, v):
         """(B, G, C, 2, R, A) -> (B*G, 2, numFrames, R, A): the reference's
@@ -61,6 +69,7 @@ class HuPRNet(nn.Module):
         ra_l = self.RAradarEncoder(ra.permute(0, 4, 1, 2, 3))
         re_l = self.REradarEncoder(re.permute(0, 4, 1, 2, 3))
         logits, gcn = self.radarDecoder(*ra_l, *re_l)
+        logits, gcn = logits.to(torch.float32), gcn.to(torch.float32)
         return torch.sigmoid(logits)[:, :, None], gcn[:, None]
 
     def forward(self, vrdae_hori, vrdae_vert):
@@ -71,10 +80,10 @@ def build_model(cfg, device=None) -> HuPRNet:
     """HuPRNet from a hupr_tpu_torch.config.Config, in eval mode (the train
     step switches it to train mode for its own call), on the card unless
     `device` says otherwise."""
-    if cfg.MODEL.computeDtype != "float32":
-        raise NotImplementedError(
-            f"MODEL.computeDtype {cfg.MODEL.computeDtype!r} is not ported "
-            f"yet; only float32 is")
+    dtypes = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    if cfg.MODEL.computeDtype not in dtypes:
+        raise ValueError(f"MODEL.computeDtype {cfg.MODEL.computeDtype!r}: "
+                         f"expected one of {sorted(dtypes)}")
     if cfg.MODEL.remat:
         raise NotImplementedError("MODEL.remat is not ported yet")
     model = HuPRNet(
@@ -84,5 +93,6 @@ def build_model(cfg, device=None) -> HuPRNet:
         num_keypoints=cfg.DATASET.numKeypoints,
         heatmap_size=cfg.DATASET.heatmapSize,
         attn_impl=cfg.MODEL.attention,
+        compute_dtype=dtypes[cfg.MODEL.computeDtype],
     )
     return model.to(resolve_device(device)).eval()

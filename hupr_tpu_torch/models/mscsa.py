@@ -6,44 +6,68 @@ four spatial attentions (hori-cross, hori-self, vert-cross, vert-self) whose
 outputs are concatenated with the upsampled coarser-scale maps into a
 two-block decoder stage. The final 1x1 conv emits K keypoint logits, which
 the PRGCN refines.
+
+With a bfloat16 compute dtype the projections, the attentions' inputs and
+the decoder blocks are bfloat16; the x2 resizes return float32, so the
+concatenations at scales 1 and 2 are float32 and the next block casts them
+back, and the PRGCN runs in float32 (as the JAX package's type promotion
+places them).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from hupr_tpu_torch.models.blocks import BasicBlock, Rescale
+from hupr_tpu_torch.models.blocks import BasicBlock, Conv2d, Rescale
 from hupr_tpu_torch.models.prgcn import PRGCN
-from hupr_tpu_torch.ops.attention import attention_plain, spatial_attention
+from hupr_tpu_torch.ops.attention import spatial_attention
 
 PROJECTIONS = ("phi_cross_hori", "theta_cross_hori", "phi_cross_vert",
                "theta_cross_vert", "phi_self_hori", "theta_self_hori",
                "phi_self_vert", "theta_self_vert")
 
+def attention_xla(k, q, m, dtype: torch.dtype = torch.float32):
+    """MODEL.attention 'xla' (hupr_tpu/models/mscsa.py:spatial_attention),
+    which autograd differentiates: k, q and m are cast to the compute
+    `dtype`, the logits and the softmax are float32, the softmax is rounded
+    to `dtype`, and the second product accumulates in float32; out comes
+    back in m's dtype. In float32 every cast is the identity and this is the
+    plain attention. (With bfloat16 the kernels keep the softmax in float32:
+    a different function.)"""
+    kf, qf, mf = (t.to(dtype).to(torch.float32) for t in (k, q, m))
+    a = torch.softmax(torch.einsum("bic,bjc->bij", kf, qf), dim=1)
+    out = torch.einsum("bic,bij->bjc", mf, a.to(dtype).to(torch.float32))
+    return out.to(m.dtype)
+
+
 # MODEL.attention -> the (B, N, C) attention it runs: 'pallas' launches the
-# forward kernel, and under autograd the backward kernel too; autograd
-# differentiates the plain version
-ATTENTION = {"xla": attention_plain, "pallas": spatial_attention}
+# forward kernel, and under autograd the backward kernel too; 'pallas_bf16'
+# the same kernels with bfloat16 operands; 'xla' the eager path
+ATTENTION = ("xla", "pallas", "pallas_bf16")
 
 
-def attention_impl(name: str):
-    if name == "pallas_bf16":
-        raise NotImplementedError(
-            "MODEL.attention 'pallas_bf16' is not ported yet")
+def attention_impl(name: str, dtype: torch.dtype = torch.float32):
     if name not in ATTENTION:
         raise ValueError(f"unknown MODEL.attention {name!r}; expected one "
-                         f"of {sorted(ATTENTION)}")
-    return ATTENTION[name]
+                         f"of {ATTENTION}")
+    if name == "xla":
+        return functools.partial(attention_xla, dtype=dtype)
+    return functools.partial(spatial_attention,
+                             bf16_ops=name == "pallas_bf16")
 
 
 class MSCSADecoder(nn.Module):
     def __init__(self, num_filters: int, num_keypoints: int,
-                 heatmap_size: int, attn_impl: str = "xla"):
+                 heatmap_size: int, attn_impl: str = "xla",
+                 compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         f = num_filters
-        self.attention = attention_impl(attn_impl)
+        self.compute_dtype = compute_dtype
+        self.attention = attention_impl(attn_impl, compute_dtype)
         # ModuleList index = scale: 0 is H/4 at 8F channels, 2 is H at 2F
         for name in PROJECTIONS:
             setattr(self, name, nn.ModuleList(
@@ -51,7 +75,7 @@ class MSCSADecoder(nn.Module):
 
         def bb(cin, cout):
             return BasicBlock(cin, cout, ndim=2, batchnorm=False,
-                              activation="prelu")
+                              activation="prelu", compute_dtype=compute_dtype)
 
         self.decoderLayer3 = nn.Sequential(bb(f * 32, f * 8), bb(f * 8, f * 4),
                                            Rescale(2.0))
@@ -59,7 +83,8 @@ class MSCSADecoder(nn.Module):
                                            Rescale(2.0))
         self.decoderLayer1 = nn.Sequential(
             bb(f * 10, f * 2), bb(f * 2, f),
-            nn.Conv2d(f, num_keypoints, 1, bias=False))
+            Conv2d(f, num_keypoints, 1, bias=False,
+                   compute_dtype=compute_dtype))
         self.gcn = PRGCN(heatmap_size, num_keypoints)
 
     def _attend_scale(self, idx, ra, re):
@@ -72,7 +97,9 @@ class MSCSADecoder(nn.Module):
         re_t = re.reshape(b, c, h * w).transpose(1, 2).contiguous()
 
         def proj(name, x):
-            return F.linear(x, getattr(self, name)[idx].weight[:, :, 0, 0])
+            w = getattr(self, name)[idx].weight[:, :, 0, 0]
+            dt = self.compute_dtype
+            return F.linear(x.to(dt), w.to(dt))
 
         def attend(k, q, m):
             out = self.attention(k, q, m)

@@ -4,6 +4,10 @@ reference gcn_networks.py).
 Heatmap logits (B, K, H, W) -> bilinear x0.5 -> node features (B, P, K) with
 P = (H/2)^2 nodes in row-major (h, w) order -> 3 GCN layers
 out = W @ (x @ A) + b with ReLU between -> bilinear x2 -> sigmoid.
+
+It computes in the dtype of its input after the first resize, which is
+float32 whatever the model's compute dtype (ops.resize promotes), as the JAX
+package's GCNLayer computes in x.dtype: so the PRGCN is float32 throughout.
 """
 
 from __future__ import annotations

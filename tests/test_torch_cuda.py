@@ -12,7 +12,10 @@ import pytest
 import torch
 
 from hupr_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
-                                          attention_fwd, attention_plain,
+                                          attention_fwd,
+                                          attention_fwd_unfolded,
+                                          attention_plain,
+                                          attention_unfolded_plain,
                                           spatial_attention)
 from hupr_tpu_torch.utils.device import float32_math
 
@@ -173,3 +176,147 @@ def test_train_step_on_card(cuda):
             losses[impl].append(metrics["loss"].item())
     assert np.isfinite(losses["pallas"]).all()
     np.testing.assert_allclose(losses["pallas"], losses["xla"], rtol=2e-4)
+
+
+# ------------------------------------------------------------ bfloat16 modes
+
+# (input dtype, bf16_ops) of the three modes beside full float32
+BF16_MODES = [(torch.bfloat16, False), (torch.float32, True),
+              (torch.bfloat16, True)]
+MODE_IDS = ["bf16", "f32_bf16ops", "bf16_bf16ops"]
+BF16_SHAPES = [(2, 4096, 64), (2, 1024, 128), (2, 256, 256)] + [
+    (2, n, c) for c in (64, 128, 256) for n in (1, 65, 100, 1000)]
+
+
+def _assert_rel(got, want, name, bar=2.0 ** -8.5):
+    """Relative norm error below `bar` (bfloat16 rounds to 2^-9 relative;
+    kernel and twin round at the same points but may round a value the
+    other way, or p against another maximum), with an absolute slack of
+    1e-4 per element for outputs that are zero up to float32 noise (N=1)."""
+    got, want = got.float(), want.float()
+    err = (got - want).norm().item()
+    assert err <= bar * want.norm().item() + 1e-4 * want.numel() ** 0.5, \
+        (name, err, want.norm().item())
+
+
+def _unit_spread(b, n, c, dtype, device, seed, count=3):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    ts = [torch.randn((b, n, c), generator=gen, device=device)
+          for _ in range(count)]
+    # logits of unit spread, as in _bwd_inputs
+    ts[0], ts[1] = ts[0] * c ** -0.25, ts[1] * c ** -0.25
+    return [t.to(dtype) for t in ts]
+
+
+@pytest.mark.parametrize("dtype,bf16_ops", BF16_MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("b,n,c", BF16_SHAPES)
+def test_attention_fwd_bf16_modes_match_twin(cuda, b, n, c, dtype, bf16_ops):
+    """Each mode against its plain twin in the working dtype: out in the
+    inputs' dtype within the relative bar, the LSE float32 within 1e-4
+    (float32 sums of exact products in another order), one launch counted
+    under the mode."""
+    k, q, m = _unit_spread(b, n, c, dtype, cuda, seed=n + c)
+    mode = ("bf16" if dtype == torch.bfloat16 else "f32") + (
+        "_bf16ops" if bf16_ops else "")
+    before = attention_fwd.launches_by_mode.get(mode, 0)
+    with torch.inference_mode():
+        out, lse = attention_fwd(k, q, m, with_lse=True, bf16_ops=bf16_ops)
+        want, want_lse = attention_plain(k, q, m, True, bf16_ops)
+    torch.cuda.synchronize()
+    assert attention_fwd.launches_by_mode[mode] == before + 1
+    assert out.dtype == dtype and lse.dtype == torch.float32
+    _assert_rel(out, want, "out")
+    torch.testing.assert_close(lse, want_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("dtype,bf16_ops", BF16_MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("b,n,c", BF16_SHAPES)
+def test_attention_bwd_bf16_modes_match_twin(cuda, b, n, c, dtype, bf16_ops):
+    """The backward of each mode against its twin, from the same forward
+    residuals: dk, dq, dm in the inputs' dtype within 2^-12 relative. The
+    two round at the same points, so only a float32 sum in another order
+    that rounds a value the other way separates them, and moving one
+    rounding point moves the twin by more (tests/test_torch_bf16.py::
+    test_bwd_twin_bar_sees_rounding)."""
+    k, q, m, g = _unit_spread(b, n, c, dtype, cuda, seed=n + 2 * c, count=4)
+    with torch.inference_mode():
+        out, lse = attention_fwd(k, q, m, with_lse=True, bf16_ops=bf16_ops)
+    got = attention_bwd(k, q, m, out, lse, g, bf16_ops=bf16_ops)
+    want = attention_bwd_plain(k, q, m, out, lse, g, bf16_ops)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dk", "dq", "dm"), got, want):
+        assert a.dtype == dtype
+        _assert_rel(a, w, name, bar=2.0 ** -12)
+
+
+@pytest.mark.parametrize("bf16_ops", [False, True], ids=["f32", "bf16ops"])
+@pytest.mark.parametrize("b,n,c", [(2, 4096, 64), (2, 1024, 128),
+                                   (2, 256, 256), (2, 100, 64), (1, 1, 128),
+                                   (2, 1000, 256)])
+def test_attention_fwd_unfolded_matches_twin(cuda, b, n, c, bf16_ops):
+    """The unfolded forward against its twin: float32 within 1e-4 (the
+    folded kernel's bar), bf16_ops within the relative bar."""
+    k, q, m = _unit_spread(b, n, c, torch.float32, cuda, seed=n)
+    before = attention_fwd_unfolded.launches
+    got = attention_fwd_unfolded(k, q, m, bf16_ops=bf16_ops)
+    want = attention_unfolded_plain(k, q, m, bf16_ops)
+    torch.cuda.synchronize()
+    assert attention_fwd_unfolded.launches == before + 1
+    if bf16_ops:
+        _assert_rel(got, want, "out")
+    else:
+        assert (got - want).abs().max().item() <= 1e-4
+
+
+@pytest.mark.parametrize("compute,attn", [("bfloat16", "pallas"),
+                                          ("float32", "pallas_bf16"),
+                                          ("bfloat16", "pallas_bf16")])
+def test_bf16_train_step_on_card(cuda, compute, attn):
+    """Two train steps at the kernels' widths (numFilters 32) on 16x16
+    maps: 12 + 12 launches a step, all in the expected mode; float32 losses
+    and grads; losses within rtol 1e-2 of the same steps through the eager
+    attention ('xla') in the same compute dtype, which rounds at other
+    points (its softmax to bfloat16 in bfloat16 compute; nothing in
+    float32), so the two differ at bfloat16's level."""
+    import numpy as np
+
+    from hupr_tpu_torch.config import config_from_dict
+    from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                             make_train_step)
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    h, b = 16, 2
+    rng = np.random.default_rng(1)
+    shape = (b, 8, 8, 2, h, h, 8)
+    batches = [{"hori": rng.standard_normal(shape).astype(np.float32),
+                "vert": rng.standard_normal(shape).astype(np.float32),
+                "jointsGroup": rng.uniform(4, 4 * h - 4, (b, 14, 2))}
+               for _ in range(2)]
+    mode = ("bf16" if compute == "bfloat16" else "f32") + (
+        "_bf16ops" if attn == "pallas_bf16" else "")
+    losses = {}
+    for impl in (attn, "xla"):
+        cfg = config_from_dict({"DATASET": {"heatmapSize": h},
+                                "MODEL": {"computeDtype": compute,
+                                          "attention": impl}})
+        model = build_model(cfg, device=cuda)
+        model.load_state_dict(synthetic_state_dict(model, seed=0,
+                                                   scale=0.03), strict=True)
+        tx = make_optimizer(cfg, model)
+        state = TrainState(model, tx)
+        step = make_train_step(model, tx, -1.0, (14, h, 4 * h))
+        losses[impl] = []
+        for batch in batches:
+            attention.reset_launch_counts()
+            state, metrics = step(state, batch, 1e-4, 0.0)
+            want = {mode: 12} if impl == attn else {}
+            assert attention.attention_fwd.launches_by_mode == want
+            assert attention.attention_bwd.launches_by_mode == want
+            assert metrics["loss"].dtype == torch.float32
+            losses[impl].append(metrics["loss"].item())
+        assert all(p.dtype == torch.float32 and p.grad.dtype == torch.float32
+                   for p in model.parameters())
+    assert np.isfinite(losses[attn]).all()
+    np.testing.assert_allclose(losses[attn], losses["xla"], rtol=1e-2)

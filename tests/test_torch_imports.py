@@ -101,8 +101,8 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
 
 
 @pytest.mark.parametrize("field,value,exc", [
-    ("attention", "pallas_bf16", NotImplementedError),
-    ("computeDtype", "bfloat16", NotImplementedError),
+    ("attention", "pallas_fp8", ValueError),
+    ("computeDtype", "float16", ValueError),
     ("attention", "flash", ValueError),
     ("remat", True, NotImplementedError),
 ])
