@@ -28,7 +28,9 @@
 6. The bfloat16 modes of both kernels (bfloat16 inputs; bfloat16 operands
    on float32 inputs; bfloat16 operands on bfloat16 inputs) against their
    plain twins and the float32 ideal at the three path shapes, on three
-   draws of inputs each, timed beside the twins and SDPA in bfloat16.
+   draws of inputs each (the backward called twice on each, bit-identical),
+   timed beside the twins and SDPA in bfloat16, with the backward's time
+   split between its two passes.
 7. The fast config (config/mscsa_prgcn_tpu_fast.yaml: MODEL.computeDtype
    bfloat16) served and trained as in 4 and 5, against its eager attention
    and against the float32 slice from the same weights; profiles of both.
@@ -50,6 +52,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -71,6 +74,22 @@ LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # kernel path vs plain-attention path over the train steps: the weights
 # within the bars of tests/test_reference_parity.py in both compute dtypes
 PARAM_ATOL, PARAM_RTOL = 7e-4, 1e-3
+# In bfloat16 the two paths' activations differ by about 0.5 % (any two
+# implementations do: each rounding to bfloat16 that lands the other way
+# spreads through the layers), so a ReLU whose input sits that close to 0
+# takes one branch in one path and the other in the other. At the first
+# step both paths hold the same weights, so a weight whose gradient is
+# exactly 0 in one path and not in the other sits behind such a branch.
+# Adam (its L2 term moves even a weight with no gradient by about lr a
+# step) can then move it by about lr a step one way in one path and the
+# other way in the other: up to 10 lr apart after 5 steps, past PARAM_ATOL,
+# however right both paths are. So every weight is held to the bars above
+# after the first step, and every weight but those branch flips after the
+# last; the flips are counted, and their count is held to BRANCH_FLIPS_MAX:
+# 88 to 93 of 35.5M weights on the H100 with the bf16 fast recipe on
+# bench.py's batch (two versions of the kernels), twice the most. A fault
+# that moves the activations by more than bfloat16's noise flips many more.
+BRANCH_FLIPS_MAX = 186
 # (N, C) of the 12 attention calls per forward: 4 at each MSCSA scale
 ATTN_SHAPES = ((256, 256), (1024, 128), (4096, 64))
 # the bfloat16 modes: (name, input dtype, bf16_ops)
@@ -119,15 +138,16 @@ HEATMAP_TOL_VS_F32, DECODE_AGREE_VS_F32 = 0.05, 0.75
 MICRO_SHAPE = (32, 4096, 64)   # the JAX microbenchmark's default
 
 # Peaks of each H100 variant at its full power limit, dense: float32
-# FMA-pipe and bfloat16 tensor-core flop/s and the memory rate (NVIDIA's
-# data sheet); the SFU's exp rate, 16 a clock per SM (CUDA programming
-# guide, arithmetic throughput, compute capability 9.0) x SMs x boost clock
-PEAKS = {"PCIe": {"f32": 51.2e12, "bf16": 756e12, "bytes": 2.0e12,
-                  "sfu": 16 * 114 * 1.755e9},
-         "NVL": {"f32": 60.0e12, "bf16": 835e12, "bytes": 3.9e12,
-                 "sfu": 16 * 132 * 1.785e9},
-         "SXM": {"f32": 66.9e12, "bf16": 989e12, "bytes": 3.35e12,
-                 "sfu": 16 * 132 * 1.98e9}}
+# FMA-pipe, bfloat16 and TF32 tensor-core flop/s and the memory rate
+# (NVIDIA's data sheet); the SFU's exp rate, 16 a clock per SM (CUDA
+# programming guide, arithmetic throughput, compute capability 9.0) x SMs x
+# boost clock
+PEAKS = {"PCIe": {"f32": 51.2e12, "bf16": 756e12, "tf32": 378e12,
+                  "bytes": 2.0e12, "sfu": 16 * 114 * 1.755e9},
+         "NVL": {"f32": 60.0e12, "bf16": 835e12, "tf32": 417.5e12,
+                 "bytes": 3.9e12, "sfu": 16 * 132 * 1.785e9},
+         "SXM": {"f32": 66.9e12, "bf16": 989e12, "tf32": 495e12,
+                 "bytes": 3.35e12, "sfu": 16 * 132 * 1.98e9}}
 
 
 def card_peaks(name: str):
@@ -170,35 +190,46 @@ def sdpa(q, k, m):
                                           scale=1.0)[:, 0]
 
 
+def product_route(a: str, b: str, peaks):
+    """(pipe, seconds per flop) of one product of operands of precisions a
+    and b ("f32" or "bf16") at the cheapest route that keeps them: two
+    bfloat16 operands one tensor-core product; a float32 operand against a
+    bfloat16 one two bfloat16 products (the float32 side split into hi and
+    lo terms) or the FMA pipe; two float32 operands three TF32 products
+    (3xTF32) or the FMA pipe, whichever is faster."""
+    fma = 1 / peaks["f32"]
+    if a == b == "bf16":
+        return "tensor", 1 / peaks["bf16"]
+    tensor = 2 / peaks["bf16"] if "bf16" in (a, b) else 3 / peaks["tf32"]
+    return ("tensor", tensor) if tensor <= fma else ("fma", fma)
+
+
 def attention_bound(kind: str, b: int, n: int, c: int, mode: str, peaks,
                     lse: bool = False):
     """(bound ms, bound_by) of one attention call in `mode`: the larger of
     the bytes term (each input read once, each output written once, at the
-    memory rate) and the operations term, the slowest of the three pipes the
-    work needs at their peaks, which run side by side: products of two
-    bfloat16 operands on the tensor cores, products with a float32 operand
-    on the float32 FMA pipes, and the B*N^2 exps on the SFU. `kind` is
-    "fwd" or "unfolded" (2 products of 2*B*N^2*C flops: logits, p.m) or
-    "bwd" (5: logits, dP, dq, dk, dm). With bfloat16 inputs the logits (and
-    dP) take two bfloat16 operands and the rest a float32 p or dS; under
-    bf16_ops every product takes two."""
+    memory rate) and the operations term, the slowest of the pipes the work
+    needs, which run side by side: the tensor cores, the float32 FMA pipes
+    and the SFU for the B*N^2 exps. Each product of 2*B*N^2*C flops goes
+    to its cheapest route (product_route). `kind` is "fwd" or "unfolded"
+    (logits, p.m) or "bwd" (logits, dP, then dq, dk, dm). The logits and dP
+    take the mode's input operands (bfloat16 but in mode f32); p and dS are
+    float32 but under bf16_ops."""
     product = 2 * b * n * n * c
-    total = 5 if kind == "bwd" else 2
-    if mode.endswith("bf16ops"):
-        tensor = total
-    elif mode == "bf16":
-        tensor = 2 if kind == "bwd" else 1
-    else:
-        tensor = 0
+    ops = "bf16" if mode.endswith("bf16ops") else "f32"
+    ins = "f32" if mode == "f32" else "bf16"
+    pairs = [(ins, ins), (ops, ins)] if kind != "bwd" \
+        else [(ins, ins)] * 2 + [(ops, ins)] * 3
+    terms = {"tensor": 0.0, "fma": 0.0, "sfu": b * n * n / peaks["sfu"]}
+    for pair in pairs:
+        pipe, per_flop = product_route(*pair, peaks)
+        terms[pipe] += product * per_flop
     size = 2 if mode.startswith("bf16") else 4
     if kind == "bwd":     # k, q, m, out, g and lse read; dk, dq, dm written
         nbytes = 8 * b * n * c * size + 4 * b * n
     else:                 # k, q, m read; out (and lse) written
         nbytes = 4 * b * n * c * size + (4 * b * n if lse else 0)
-    terms = {"bytes": nbytes / peaks["bytes"],
-             "tensor": tensor * product / peaks["bf16"],
-             "fma": (total - tensor) * product / peaks["f32"],
-             "sfu": b * n * n / peaks["sfu"]}
+    terms["bytes"] = nbytes / peaks["bytes"]
     worst = max(terms, key=terms.get)
     return 1e3 * terms[worst], "bytes" if worst == "bytes" else "operations"
 
@@ -368,6 +399,10 @@ def worst_of(draws):
                 "lse_max_abs_err"):
         if key in out:
             out[key] = max(d[key] for d in draws)
+    if "rel_err_vs_twin_by_grad" in out:
+        out["rel_err_vs_twin_by_grad"] = {
+            name: max(d["rel_err_vs_twin_by_grad"][name] for d in draws)
+            for name in out["rel_err_vs_twin_by_grad"]}
     out["rel_err_vs_ideal_by_draw"] = [d["rel_err_vs_ideal"] for d in draws]
     return out
 
@@ -379,7 +414,7 @@ def check_attention_modes(torch, peaks):
     the forward with its LSE and the backward at B=20 as trained. Times
     kernel, twin, and SDPA in bfloat16 (its backward for the backward).
     Returns per-(mode, shape) results."""
-    from hupr_tpu_torch.ops.attention import (attention_bwd,
+    from hupr_tpu_torch.ops.attention import (BWD_MATMULS, attention_bwd,
                                               attention_bwd_plain,
                                               attention_flops, attention_fwd,
                                               attention_plain)
@@ -436,12 +471,17 @@ def check_attention_modes(torch, peaks):
                     ideal_out, ideal_lse = attention_plain(*vals[:3],
                                                            with_lse=True)
                     got = attention_bwd(k, q, m, out, lse, g, bf16_ops=ops)
+                    again = attention_bwd(k, q, m, out, lse, g, bf16_ops=ops)
+                    repeats = all(torch.equal(a, w)
+                                  for a, w in zip(got, again))
+                    del again
                     want = attention_bwd_plain(k, q, m, out, lse, g, ops)
                     ideal = attention_bwd_plain(*vals[:3], ideal_out,
                                                 ideal_lse, vals[3])
                     draws.append({
                         "dtypes": [str(t.dtype) for t in got],
                         "lse_dtype": str(lse.dtype),
+                        "repeats_bit_for_bit": repeats,
                         "lse_max_abs_err": (lse - ideal_lse).abs().max()
                         .item(),
                         "max_abs_err": max((a.float() - w.float()).abs()
@@ -449,6 +489,9 @@ def check_attention_modes(torch, peaks):
                                            for a, w in zip(got, want)),
                         "rel_err_vs_twin": max(rel_err(a, w)
                                                for a, w in zip(got, want)),
+                        "rel_err_vs_twin_by_grad": {
+                            name: rel_err(a, w) for name, a, w in zip(
+                                ("dk", "dq", "dm"), got, want)},
                         "rel_err_vs_ideal": max(rel_err(a, i)
                                                 for a, i in zip(got, ideal))})
                     del got, want, ideal, vals, ideal_out, ideal_lse
@@ -475,6 +518,8 @@ def check_attention_modes(torch, peaks):
                 del o, qs, ks, ms_
             bwd["bound_ms"], bwd["bound_by"] = attention_bound(
                 "bwd", b, n, c, mode, peaks)
+            bwd["tflops"] = 2 * b * n * n * c * BWD_MATMULS \
+                / bwd["kernel_ms"] / 1e9
             with_lse["bound_ms"], with_lse["bound_by"] = attention_bound(
                 "fwd", b, n, c, mode, peaks, lse=True)
             row = {"kernel": "attention", "mode": mode, "N": n, "C": c,
@@ -488,6 +533,9 @@ def check_attention_modes(torch, peaks):
             if fwd["dtype"] != str(dtype) or bwd["dtypes"] != [str(dtype)] * 3:
                 raise AssertionError(f"{mode}: output dtypes {fwd['dtype']}, "
                                      f"{bwd['dtypes']}, expected {dtype}")
+            if not all(d["repeats_bit_for_bit"] for d in draws):
+                raise AssertionError(f"attention_bwd {mode} N={n} C={c}: two "
+                                     f"calls gave different bits")
             if bwd["lse_dtype"] != "torch.float32" or \
                     not bwd["lse_max_abs_err"] <= LSE_ATOL:
                 raise AssertionError(f"{mode} LSE: {bwd['lse_dtype']}, max "
@@ -610,6 +658,16 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
     return result, run, outs
 
 
+def kernel_times(torch, prof):
+    """(kernel name, device ms, calls) of each CUDA kernel a torch.profiler
+    run saw, the longest first."""
+    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
+               for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0]
+    return sorted(kernels, key=lambda x: -x[1])
+
+
 def profile(torch, path: str, fn, top: int = 12):
     """One call of fn under torch.profiler: device time by kernel, the time
     the device was busy (the union of its events' spans, so that work that
@@ -625,10 +683,7 @@ def profile(torch, path: str, fn, top: int = 12):
         fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
-               for e in prof.key_averages()
-               if e.device_type == cuda and e.self_device_time_total > 0]
-    kernels.sort(key=lambda x: -x[1])
+    kernels = kernel_times(torch, prof)
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted((e.time_range.start, e.time_range.end)
                              for e in prof.events() if e.device_type == cuda):
@@ -673,8 +728,10 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
     """The training step of `make_cfg()` (the flagship recipe by default)
     through the kernels in `mode` and, from the same weights, through the
     eager attention in the same compute dtype, on bench.py's batch: the
-    projections' gradients at the first step, then the losses, weights and
-    BN statistics after the timed steps, at TRAIN_BARS[mode]; returns the
+    projections' gradients and every weight at the first step, then the
+    losses, the weights (but the first step's branch flips, which are
+    counted: see PARAM_ATOL) and BN statistics after the timed steps, at
+    TRAIN_BARS[mode] and the weights' bars; returns the
     slice's results and, for each path, a function that takes one more
     step."""
     from hupr_tpu_torch.config import flagship_training_config
@@ -721,12 +778,28 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
                 p["lr"] *= t.warmupGrowth if 0 < t.warmupEpoch else t.lrDecay
             p["idx"] += 1
 
-    grads = {}
+    def flat_params(p):
+        return torch.cat([v.detach().flatten()
+                          for v in p["state"].model.parameters()])
+
+    grads, zero, first = {}, {}, {}
     for name in ("pallas", "xla"):          # warm-up: cuDNN plans, caches
         drive(paths[name], 1)
-        grads[name] = projection_grads(torch, paths[name]["state"].model)
+        model = paths[name]["state"].model
+        grads[name] = projection_grads(torch, model)
+        # which weights got an exactly-zero gradient at the first step
+        zero[name] = torch.cat([(prm.grad == 0).flatten()
+                                for prm in model.parameters()])
+        first[name] = flat_params(paths[name])
     grad_rel = rel_err(grads["pallas"], grads["xla"])
-    del grads
+    # every weight after the first step, both paths from the same weights
+    first_excess = allclose_excess(first["pallas"], first["xla"],
+                                   PARAM_ATOL, PARAM_RTOL)
+    first_err = (first["pallas"] - first["xla"]).abs().max().item()
+    # weights behind a branch the two paths took apart (see PARAM_ATOL)
+    branch_flips = zero["pallas"] != zero["xla"] if mode != "f32" \
+        else torch.zeros_like(zero["pallas"])
+    del grads, zero, first
     timing = {}
     # in turns on one card: the kernel path, then the plain attention
     for name in ("pallas", "xla"):
@@ -760,15 +833,17 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
                    for a, b in zip(losses["pallas"], losses["xla"]))
     bars = TRAIN_BARS[mode]
     models = [p["state"].model for p in paths.values()]
-    params, params_x = ({k: v.detach() for k, v in mdl.named_parameters()}
-                        for mdl in models)
     stats, stats_x = ({k: v for k, v in mdl.named_buffers()
                        if v.is_floating_point()} for mdl in models)
-    param_excess = max(allclose_excess(params[key], params_x[key],
-                                       PARAM_ATOL, PARAM_RTOL)
-                       for key in params)
-    param_err = max((params[key] - params_x[key]).abs().max().item()
-                    for key in params)
+    flat, flat_x = (flat_params(p) for p in paths.values())
+    diff = (flat - flat_x).abs()
+    keep = ~branch_flips
+    param_excess = (diff - (PARAM_ATOL + PARAM_RTOL * flat_x.abs()))[keep] \
+        .max().item()
+    param_err = diff[keep].max().item()
+    flips = int(branch_flips.sum())
+    flip_err = diff[branch_flips].max().item() if flips else 0.0
+    del flat, flat_x, diff, keep
     stats_excess = max(allclose_excess(stats[key], stats_x[key],
                                        *bars["stats"]) for key in stats)
     stats_err = max((stats[key] - stats_x[key]).abs().max().item()
@@ -785,8 +860,12 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
               "train_samples_per_sec_xla": 1e3 * b / ms["xla"],
               "losses": losses["pallas"], "losses_xla": losses["xla"],
               "loss_max_rel_err_vs_xla": loss_rel,
+              "param_max_abs_err_after_first_step": first_err,
+              "param_allclose_excess_after_first_step": first_excess,
               "param_max_abs_err_vs_xla": param_err,
               "param_allclose_excess": param_excess,
+              "param_branch_flips": flips,
+              "param_branch_flip_max_abs_err": flip_err,
               "bn_stats_max_abs_err_vs_xla": stats_err,
               "bn_stats_allclose_excess": stats_excess,
               "projection_grad_rel_err_vs_xla": grad_rel,
@@ -805,10 +884,18 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
         raise AssertionError(f"train losses differ from the plain-attention "
                              f"path by {loss_rel} relative > "
                              f"{bars['loss_rtol']}")
+    if not first_excess <= 0:
+        raise AssertionError(f"after the first step, weights differ from the "
+                             f"plain-attention path by up to {first_err}")
+    if not flips <= BRANCH_FLIPS_MAX:
+        raise AssertionError(f"{flips} weights behind a branch the paths "
+                             f"took apart at the first step > "
+                             f"{BRANCH_FLIPS_MAX}")
     if not (param_excess <= 0 and stats_excess <= 0):
         raise AssertionError(f"after the steps, weights differ from the "
-                             f"plain-attention path by up to {param_err} and"
-                             f" BN statistics by up to {stats_err}")
+                             f"plain-attention path by up to {param_err} "
+                             f"(not counting the {flips} branch flips) and "
+                             f"BN statistics by up to {stats_err}")
     return result, {name: (lambda p=p: drive(p, 1))
                     for name, p in paths.items()}
 
@@ -957,6 +1044,46 @@ def microbench_phase(torch, peaks):
     return rows, launches, times
 
 
+def backward_passes(torch, reps: int = 3):
+    """The backward's device ms per call in each of its passes (dq, dkdm),
+    in each mode at each path shape, B=20, from torch.profiler over `reps`
+    calls after a warm-up call: each pass's time over the launches the
+    profiler recorded (late in a process that has profiled before, it can
+    miss a call's kernels). It runs after every other timing, so that no
+    time is taken under or after this profiler's hooks."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    from hupr_tpu_torch.ops.attention import attention_bwd, attention_fwd
+    from hupr_tpu_torch.utils.device import float32_math
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    out = {}
+    for mode, dtype_name, ops in (("f32", "float32", False),) + BF16_MODES:
+        for n, c in ATTN_SHAPES:
+            k, q, m, g = unit_spread(torch, gen, (TRAIN_BATCH, n, c),
+                                     getattr(torch, dtype_name), 4)
+            with torch.inference_mode(), float32_math():
+                o, lse = attention_fwd(k, q, m, with_lse=True, bf16_ops=ops)
+                attention_bwd(k, q, m, o, lse, g, bf16_ops=ops)
+                torch.cuda.synchronize()
+                with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                    for _ in range(reps):
+                        attention_bwd(k, q, m, o, lse, g, bf16_ops=ops)
+                    torch.cuda.synchronize()
+            passes = {}
+            for key, ms, count in kernel_times(torch, prof):
+                found = re.search(r"attention_bwd\w*", key)
+                if found:
+                    ms0, count0 = passes.get(found.group(0), (0.0, 0))
+                    passes[found.group(0)] = (ms0 + ms, count0 + count)
+            out[f"{mode} N={n} C={c}"] = {
+                name: {"ms": ms / count, "launches_seen": count}
+                for name, (ms, count) in passes.items()}
+            del k, q, m, g, o, lse
+    print(json.dumps({"backward_passes_ms": out}), flush=True)
+    return out
+
+
 def kernel_entry(name, mode, source, replaces, launches, rows, scale, per,
                  **extra):
     """One object of the `kernels` line: times and bounds summed over
@@ -998,6 +1125,7 @@ def main() -> int:
     variant, peaks = card_peaks(torch.cuda.get_device_name(0))
     print(f"bound uses H100 {variant} peaks: {peaks['f32'] / 1e12} TFLOP/s "
           f"float32, {peaks['bf16'] / 1e12} TFLOP/s bfloat16 tensor, "
+          f"{peaks['tf32'] / 1e12} TFLOP/s TF32 tensor, "
           f"{peaks['sfu'] / 1e12:.3f} T exp/s, {peaks['bytes'] / 1e12} TB/s",
           flush=True)
 
@@ -1042,6 +1170,7 @@ def main() -> int:
     ops_launches = pallas_bf16_phase(torch, requests, smi, outs_f32)
     del requests, outs_f32
     micro_rows, micro_launches, _ = microbench_phase(torch, peaks)
+    backward_passes(torch)
 
     shapes = "4 at each (N, C) of (256, 256), (1024, 128), (4096, 64)"
     per_request = f"one request: 12 launches, {shapes}, B={ATTN_BATCH}"

@@ -12,9 +12,10 @@ csrc/attention_fwd.cu. The work is 4*B*N^2*C flops and B*N^2 exps against
 16*B*N*C bytes, so it is bound by operations. The TPU kernel holds whole
 (N, C) key and value panels in VMEM; a Hopper block cannot (1 MB each at
 N=4096, C=64), so the kernel streams key tiles through shared memory with an
-online softmax and never writes the (N, N) matrix. It computes with
-float32 FMAs, which hold the 1e-4 bar of the float32 reference. On request
-it also returns each query's log-sum-exp, the residual of the backward.
+online softmax and never writes the (N, N) matrix. In float32 it computes
+with float32 FMAs, which hold the 1e-4 bar of the float32 reference; the
+bfloat16 modes run on the tensor cores (wgmma). On request it also returns
+each query's log-sum-exp, the residual of the backward.
 
 `attention_bwd` replaces hupr_tpu/ops/attention.py:_attention_bwd_pallas
 with the two-pass CUDA kernel in csrc/attention_bwd.cu (10*B*N^2*C flops,
@@ -30,7 +31,9 @@ bfloat16); and with `bf16_ops` (MODEL.attention 'pallas_bf16') operands
 rounded to bfloat16 at the TPU kernels' mxu_bf16 points, on float32 or
 bfloat16 inputs. The LSE and the backward's D vector are float32 in every
 mode. Each mode has a plain twin with the same rounding points
-(`attention_plain`, `attention_bwd_plain`). `attention_fwd_unfolded`
+(`attention_plain`, `attention_bwd_plain`); mode bf16's kernels carry its
+float32 p and dS into the tensor cores as two bfloat16 terms, which keeps
+them within 2^-17 of those points. `attention_fwd_unfolded`
 (csrc/attention_fwd_unfolded.cu) replaces the microbenchmark's round-1
 Pallas body, scripts/attn_microbench.py:make_pallas(fold=False).
 """
@@ -220,6 +223,21 @@ def reset_launch_counts() -> None:
         fn.launches_by_mode = {}
 
 
+def _operand_tensors(tensors, mode: str):
+    """The operands as the kernels read them. The tensor-core modes (all
+    but 'f32') take bfloat16 operands on 16-byte boundaries (cp.async's
+    copies): f32_bf16ops rounds its float32 inputs here, one cast each,
+    to the values the TPU kernel rounds on load; a tensor that starts off
+    a boundary is copied."""
+    if mode == "f32":
+        return tensors
+    out = []
+    for t in tensors:
+        t = t.to(torch.bfloat16)
+        out.append(t.clone() if t.data_ptr() % 16 else t)
+    return out
+
+
 def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
@@ -244,10 +262,12 @@ def attention_fwd(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
                            "torch.inference_mode() or torch.no_grad()")
     _check("attention_fwd", {"k": k, "q": q, "m": m}, m.shape)
     b, n, c = m.shape
+    mode = kernel_mode(m.dtype, bf16_ops)
     out = torch.empty_like(m)
     lse = torch.empty((b, n), dtype=torch.float32, device=m.device) \
         if with_lse else None
-    _launch(attention_fwd, kernel_mode(m.dtype, bf16_ops),
+    k, q, m = _operand_tensors((k, q, m), mode)
+    _launch(attention_fwd, mode,
             (k.data_ptr(), q.data_ptr(), m.data_ptr(), out.data_ptr(),
              None if lse is None else lse.data_ptr()), (b, n, c), _stream(m))
     return (out, lse) if with_lse else out
@@ -263,9 +283,11 @@ def attention_bwd(k, q, m, out, lse, g, bf16_ops: bool = False):
     _check("attention_bwd", {"k": k, "q": q, "m": m, "out": out,
                              "lse": lse, "g": g}, m.shape)
     b, n, c = m.shape
+    mode = kernel_mode(m.dtype, bf16_ops)
     dk, dq, dm = (torch.empty_like(m) for _ in range(3))
     dvec = torch.empty((b, n), dtype=torch.float32, device=m.device)
-    _launch(attention_bwd, kernel_mode(m.dtype, bf16_ops),
+    k, q, m, g = _operand_tensors((k, q, m, g), mode)
+    _launch(attention_bwd, mode,
             [t.data_ptr() for t in (k, q, m, out, lse, g, dk, dq, dm, dvec)],
             (b, n, c), _stream(m))
     return dk, dq, dm

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled at first
 use into `build/hupr_tpu_torch/` at the root of the checkout, into a file
-named by the hash of its source and flags, so an edited source is rebuilt
-and an unchanged one is reused. Nothing here runs at import time.
+named by the hash of its source, the shared headers and the flags, so an
+edited source or header is rebuilt and an unchanged one is reused.
+Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -36,9 +37,14 @@ def _nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where csrc/<name>.cu builds to: named by the hash of the source,
+    every csrc/*.cuh header (a source may include any of them) and the
+    flags."""
+    digest = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> str:

@@ -174,12 +174,15 @@ def _bwd_rounded(k, q, m, out, lse, g, at):
 
 @pytest.mark.parametrize("bf16,bf16_ops", MODES, ids=MODE_IDS)
 @pytest.mark.parametrize("moved", ["p", "dS", "D"])
-def test_bwd_twin_bar_sees_rounding(moved, bf16, bf16_ops):
+@pytest.mark.parametrize("n,c", [(1024, 128), (256, 256)])
+def test_bwd_twin_bar_sees_rounding(n, c, moved, bf16, bf16_ops):
     """Rounding one more or one fewer of p, dS and D than the mode does
     moves the backward's twin by more than TWIN_BWD_BAR, so that bar
-    separates a kernel that rounds elsewhere. (D is float32 in every mode,
-    taken from the forward's out in the inputs' dtype.)"""
-    ts, _ = _inputs(2, 1024, 128, seed=9, bf16=bf16)
+    separates a kernel that rounds elsewhere (in mode bf16, one that feeds
+    p or dS to the tensor cores as one bfloat16 term instead of hi + lo).
+    (D is float32 in every mode, taken from the forward's out in the
+    inputs' dtype.)"""
+    ts, _ = _inputs(2, n, c, seed=9, bf16=bf16)
     k, q, m, g = ts
     out, lse = attention.attention_fwd(k, q, m, with_lse=True,
                                        bf16_ops=bf16_ops)

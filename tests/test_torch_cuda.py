@@ -320,3 +320,48 @@ def test_bf16_train_step_on_card(cuda, compute, attn):
                    for p in model.parameters())
     assert np.isfinite(losses[attn]).all()
     np.testing.assert_allclose(losses[attn], losses["xla"], rtol=1e-2)
+
+
+@pytest.mark.parametrize("dtype,bf16_ops", [(torch.float32, False)]
+                         + BF16_MODES, ids=["f32"] + MODE_IDS)
+@pytest.mark.parametrize("b,n,c", [(2, 4096, 64), (2, 1024, 128),
+                                   (2, 1000, 256)])
+def test_kernels_repeat_bit_for_bit(cuda, b, n, c, dtype, bf16_ops):
+    """Two calls of each kernel on the same inputs give the same bits in
+    every mode: each block owns the rows it writes and sums them in a fixed
+    order, with no atomics."""
+    k, q, m, g = _unit_spread(b, n, c, dtype, cuda, seed=7, count=4)
+    with torch.inference_mode():
+        fwd = [attention_fwd(k, q, m, with_lse=True, bf16_ops=bf16_ops)
+               for _ in range(2)]
+    out, lse = fwd[0]
+    bwd = [attention_bwd(k, q, m, out, lse, g, bf16_ops=bf16_ops)
+           for _ in range(2)]
+    torch.cuda.synchronize()
+    for name, a, w in zip(("out", "lse", "dk", "dq", "dm"),
+                          fwd[0] + bwd[0], fwd[1] + bwd[1]):
+        assert torch.equal(a, w), name
+
+
+@pytest.mark.parametrize("dtype,bf16_ops", BF16_MODES, ids=MODE_IDS)
+def test_tensor_core_modes_take_unaligned_inputs(cuda, dtype, bf16_ops):
+    """cp.async copies 16 bytes at a time: an input that starts off a
+    16-byte boundary (a contiguous view at an odd offset) gives the same
+    bits as an aligned copy of it."""
+    b, n, c = 2, 100, 64
+    ts = _unit_spread(b, n, c, dtype, cuda, seed=11, count=4)
+    shifted = []
+    for t in ts:
+        buf = torch.empty(t.numel() + 1, dtype=dtype, device=cuda)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    with torch.inference_mode():
+        want = attention_fwd(*ts[:3], with_lse=True, bf16_ops=bf16_ops)
+        got = attention_fwd(*shifted[:3], with_lse=True, bf16_ops=bf16_ops)
+    grads = [attention_bwd(*xs[:3], *want, xs[3], bf16_ops=bf16_ops)
+             for xs in (ts, shifted)]
+    torch.cuda.synchronize()
+    for a, w in zip(got + grads[1], want + grads[0]):
+        assert torch.equal(a, w)
