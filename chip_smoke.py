@@ -70,6 +70,14 @@ TRAIN_STEPS = 4         # timed train steps per path, after one warm-up step
 # backward kernel vs plain: the bar of tests/test_attention.py for the
 # Pallas backward, atol + rtol * |plain|
 GRAD_ATOL, GRAD_RTOL = 1e-3, 1e-4
+# and each float32 gradient's relative norm error against the plain version,
+# which tells 3xTF32 from one TF32 product: the CPU model of the kernel's
+# arithmetic (tests/test_torch_tf32.py) reads at most 9.3e-7 in 3xTF32 and
+# at least 4.1e-4 in one TF32 product, at two of the model's shapes; the
+# bar is 16x over the first (the card's sums run in another order, and
+# its tensor cores may not round their float32 sums to nearest) and 27x
+# under the second
+REL_F32_BWD = 2.0 ** -16
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # kernel path vs plain-attention path over the train steps: the weights
 # within the bars of tests/test_reference_parity.py in both compute dtypes
@@ -278,9 +286,11 @@ def allclose_excess(a, b, atol, rtol) -> float:
 
 
 def check_attention_bwd(torch, peaks):
-    """Backward kernel vs plain version, and the forward's log-sum-exp vs
-    torch.logsumexp, at the three path shapes with the training batch;
-    returns per-shape results."""
+    """Backward kernel (float32: 3xTF32 on the tensor cores) vs plain
+    version, at the bar of tests/test_attention.py and at REL_F32_BWD per
+    gradient, bit-identical on a second call; and the forward's log-sum-exp
+    vs torch.logsumexp; at the three path shapes with the training batch.
+    Returns per-shape results."""
     from hupr_tpu_torch.ops.attention import (BWD_MATMULS, attention_bwd,
                                               attention_bwd_plain,
                                               attention_fwd, attention_plain)
@@ -304,9 +314,14 @@ def check_attention_bwd(torch, peaks):
             lse_err = (lse - want_lse).abs().max().item()
             del want_lse
             got = attention_bwd(k, q, m, out, lse, g)
+            again = attention_bwd(k, q, m, out, lse, g)
+            repeats = all(torch.equal(a, w) for a, w in zip(got, again))
+            del again
             want = attention_bwd_plain(k, q, m, out, lse, g)
             torch.cuda.synchronize()
             errs = {name: (a - w).abs().max().item()
+                    for name, a, w in zip(("dk", "dq", "dm"), got, want)}
+            rels = {name: rel_err(a, w)
                     for name, a, w in zip(("dk", "dq", "dm"), got, want)}
             scale = {name: w.abs().max().item()
                      for name, w in zip(("dk", "dq", "dm"), want)}
@@ -338,7 +353,9 @@ def check_attention_bwd(torch, peaks):
                "C": c,
                "max_abs_err": max(errs.values()), "max_abs_err_by_grad": errs,
                "max_abs_by_grad": scale,
-               "allclose_excess": excess, "lse_max_abs_err": lse_err,
+               "allclose_excess": excess, "rel_err_by_grad": rels,
+               "rel_err": max(rels.values()),
+               "repeats_bit_for_bit": repeats, "lse_max_abs_err": lse_err,
                "kernel_ms": kernel_ms, "plain_ms": plain_ms,
                "library_ms": library_ms, "bound_ms": bound_ms,
                "fwd_with_lse_ms": fwd_lse_ms,
@@ -353,6 +370,12 @@ def check_attention_bwd(torch, peaks):
             raise AssertionError(f"attention_bwd at N={n}, C={c}: errors "
                                  f"{errs} exceed atol {GRAD_ATOL} + rtol "
                                  f"{GRAD_RTOL}")
+        if not row["rel_err"] <= REL_F32_BWD:
+            raise AssertionError(f"attention_bwd at N={n}, C={c}: relative "
+                                 f"errors {rels} exceed {REL_F32_BWD}")
+        if not repeats:
+            raise AssertionError(f"attention_bwd at N={n}, C={c}: two calls "
+                                 f"gave different bits")
         if not lse_excess <= 0:
             raise AssertionError(f"attention_fwd's lse at N={n}, C={c}: max "
                                  f"abs error {lse_err}")
@@ -1184,7 +1207,10 @@ def main() -> int:
                      per_request),
         kernel_entry("attention_bwd", "f32", "attention_bwd", bwd_src,
                      {"serve": 0, "train": tr["attention_bwd_launches"]},
-                     bwd_rows, 4, per_step),
+                     bwd_rows, 4, per_step,
+                     body="attention_bwd_dq_tf32, attention_bwd_dkdm_tf32 "
+                          "(3xTF32 on mma.sync, csrc/tf32.cuh)",
+                     rel_err=max(r["rel_err"] for r in bwd_rows)),
     ]
     for mode, _, _ in BF16_MODES:
         mine = [r for r in mode_rows if r["mode"] == mode]

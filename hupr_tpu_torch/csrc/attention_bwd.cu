@@ -45,8 +45,9 @@
 //
 // Bound: 10*B*N^2*C flops (5 products) and 2*B*N^2 exps against 32*B*N*C
 // bytes (half in bfloat16), so it is bound by operations: the tensor cores
-// in the bf16 modes. Mode bf16's p and dS are float32, so each of its dm,
-// dk and dq products counts twice (two bf16 operands, below).
+// in every mode. Mode bf16's p and dS are float32, so each of its dm, dk and
+// dq products counts twice (two bf16 operands, below); in mode f32 every
+// product counts three times (3xTF32, below).
 //
 // The bf16 modes (the _tc kernels) run on the tensor cores, as the forward
 // does (attention_fwd.cu; the building blocks are in hopper.cuh), on 64-row
@@ -76,71 +77,165 @@
 // by cp.async 16-byte copies (rows >= n zero-filled; keys and queries >= n
 // contribute p = 0). No atomics: a run repeats bit for bit.
 //
-// The f32 mode (the _simt kernels) keeps the float32 FMA body: T = 64 queries
-// and keys at C = 64, 128, T = 32 at C = 256, where four (64, 257) float
-// tiles would not fit in a block's 227 KB and pass (b)'s two (T, C)
-// accumulators would take 128 registers a thread; rows padded by one float.
+// The f32 mode (the _tf32 kernels) runs on the tensor cores in 3xTF32
+// (tf32.cuh): each float32 operand is split into hi and lo tf32 terms at
+// fragment load, and each product is lo.hi + hi.lo + hi.hi into one float32
+// accumulator, which keeps float32's accuracy. Warp-level mma.sync
+// m16n8k8, not wgmma: wgmma's tf32 takes only K-major operands, and three
+// of the five products contract over the rows of a row-major tile
+// (dq += dS.K, dm += p^T.G, dk += dS^T.Q); mma.sync loads its fragments
+// thread by thread, so one swizzled float tile serves both orientations
+// without a transposed copy. T rows a tile (64 at C = 64, 128; 32 at
+// C = 256, for the six (T, C) float tiles to fit 227 KB), 8 warps a block
+// in both passes, each warp a 16-row block of every product:
+//   (a) S = Q.K^T and dP = G.M^T, two k-steps from each 16-byte load;
+//       p = exp2f((s - lse) log2 e) and dS = p (dP - D) in float32
+//       registers; dS to a (T, T) shared tile, then dq += dS.K.
+//   (b) S^T = K.Q^T and dP^T = M.G^T; p^T and dS^T to two shared tiles;
+//       dm += p^T.G, then dk += dS^T.Q, each warp holding its rows of both
+//       accumulators (at most 64 registers a thread; no need to split the
+//       warps between dm and dk). Each query's lse and D sit side by side,
+//       one 16-byte load for two queries.
+// p = exp2f of the difference, as in the bf16 modes: cheaper than expf,
+// and the same errors against the plain version. p and dS go through
+// shared memory because the m16n8 accumulator layout is not the m16n8k8
+// A-fragment layout; feeding them from registers by shuffles is left for
+// later. Each tile's second product is summed apart and added to the
+// running sum in float32, as in the bf16 modes. Tiles arrive through
+// two-stage rings of cp.async 16-byte copies (rows >= n zero-filled; keys
+// and queries >= n contribute p = 0); k, q, m and g on 16-byte boundaries.
+// No atomics: a run repeats bit for bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace hopper;
 
-// ------------------------------------------------------------ f32: FMAs
+// -------------------------------------------- f32: 3xTF32 on mma.sync
 
-namespace simt {
+namespace f32 {
 
-constexpr int NT = 256;     // threads per block
-constexpr int LANES = 16;   // threads sharing one tile row (half a warp)
-constexpr int ROWS = NT / LANES;  // row groups (16)
+constexpr int NT = 256;  // threads per block: 8 warps
+constexpr int STAGES = 2;
 
+// Rows of every tile, queries and keys: six (T, C) float tiles (two fixed,
+// two streamed in two stages) fit a block's 227 KB at T = 64 up to
+// C = 128, and at T = 32 at C = 256
 template <int C>
 __host__ __device__ constexpr int tile() { return C == 256 ? 32 : 64; }
 
+// the (T, C) tiles, then (T, T) dS (pass a) or p^T and dS^T (pass b), then
+// the lse and D vectors (pass b: one pair per stage)
 template <int C>
 constexpr size_t dq_smem_bytes() {
   constexpr size_t T = tile<C>();
-  return sizeof(float) * (T * (T + 1) + 4 * T * (C + 1));
+  return 4 * ((2 + 2 * STAGES) * T * C + T * T + 2 * T);
 }
-
 template <int C>
 constexpr size_t dkdm_smem_bytes() {
   constexpr size_t T = tile<C>();
-  return sizeof(float) * (2 * T * (T + 1) + 2 * T + 4 * T * (C + 1));
+  return 4 * ((2 + 2 * STAGES) * T * C + 2 * T * T + STAGES * 2 * T);
 }
 
-__device__ __forceinline__ float half_warp_sum(float v) {
+// The 8 warps tile each (T, .) product WM x WN: warp w owns rows
+// 16 (w % WM) and the (w / WM)-th of WN column blocks, in n-tiles of 8
+template <int C>
+struct Warps {
+  static constexpr int T = tile<C>();
+  static constexpr int WM = T / 16, WN = NT / 32 / WM;
+  static constexpr int NS = T / (8 * WN);  // n-tiles of S and dP
+  static constexpr int NO = C / (8 * WN);  // n-tiles of a gradient
+};
+
+// acc += X.Y for the warp's 16 rows at r0 and NO n-tiles at o0, X (T, T)
+// stored [m][k], Y (T, C) stored [k][n]. The tile is summed apart and
+// added to the running sum in float32: the tensor cores' float32
+// accumulation does not round to nearest (hopper.cuh, promote_tiles), and
+// chaining every tile of a row (1,536 mma.sync at N = 4096) would bias the
+// sums; 24 a tile from zero do not.
+template <int C>
+__device__ __forceinline__ void accumulate(float (&acc)[Warps<C>::NO][4],
+                                           const float* x, const float* y,
+                                           int r0, int o0, int lane) {
+  constexpr int T = tile<C>(), NO = Warps<C>::NO;
+  float part[NO][4] = {};
 #pragma unroll
-  for (int off = LANES / 2; off > 0; off >>= 1)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+  for (int kk = 0; kk < T; kk += 8) {
+    const tf32::FragA a = tf32::load_a<T>(x, r0, kk, lane);
+    tf32::FragB b[NO];
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      b[j] = tf32::load_b_mn<C>(y, kk, o0 + 8 * j, lane);
+    tf32::mma3(part, a, b);
+  }
+#pragma unroll
+  for (int j = 0; j < NO; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] += part[j][e];
 }
 
-// Stage rows r0 .. r0+T-1 of a (n, C) panel into a (T, C + 1) tile, zeros
-// beyond row n.
-template <int C, int T>
-__device__ __forceinline__ void stage(float* dst, const float* src,
-                                      size_t base, int r0, int n) {
-  constexpr int QS = C + 1;
-  for (int e = threadIdx.x; e < T * C; e += NT) {
-    const int r = e / C, c = e % C;
-    dst[r * QS + c] = (r0 + r < n) ? src[base + size_t(r0 + r) * C + c] : 0.f;
+// s += X.Y^T and dp += Z.V^T over C for the warp's 16 rows at r0 and NS
+// n-tiles at s0: X, Z (T, C) and Y, V (T, C), all stored [row][C]; two
+// k-steps from each 16-byte load
+template <int C>
+__device__ __forceinline__ void logits(float (&s)[Warps<C>::NS][4],
+                                       float (&dp)[Warps<C>::NS][4],
+                                       const float* x, const float* y,
+                                       const float* z, const float* v,
+                                       int r0, int s0, int lane) {
+  constexpr int NS = Warps<C>::NS;
+  const int g = lane >> 2, t = lane & 3;
+  const tf32::Chunks<C> ra(r0 + g, t), rb(r0 + g + 8, t);
+  tf32::Chunks<C> rn[NS];
+#pragma unroll
+  for (int j = 0; j < NS; ++j) rn[j] = tf32::Chunks<C>(s0 + 8 * j + g, t);
+#pragma unroll
+  for (int c = 0; c < C; c += 16) {
+    tf32::FragA ax[2], az[2];
+    tf32::frags_a2(ra.load(x, c), rb.load(x, c), ax);
+    tf32::frags_a2(ra.load(z, c), rb.load(z, c), az);
+    tf32::FragB by[2][NS], bv[2][NS];
+#pragma unroll
+    for (int j = 0; j < NS; ++j) {
+      tf32::frags_b2(rn[j].load(y, c), by[0][j], by[1][j]);
+      tf32::frags_b2(rn[j].load(v, c), bv[0][j], bv[1][j]);
+    }
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      tf32::mma3(s, ax[h], by[h]);
+      tf32::mma3(dp, az[h], bv[h]);
+    }
   }
 }
 
-// Thread t owns tile rows rg + 16*i and columns cg + 16*j, rg = t / 16,
-// cg = t % 16, as in the forward kernel. Tile rows are padded, so the
-// column walks below read 16 distinct banks.
+// The warp's (16, NO n-tiles) block of a gradient, rows >= n skipped
+template <int C>
+__device__ __forceinline__ void store_rows(float* dst,
+                                           const float (&acc)[Warps<C>::NO][4],
+                                           int row0, int o0, int n,
+                                           int lane) {
+  const int gr = lane / 4, col0 = 2 * (lane % 4);
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + gr + 8 * h;
+    if (row >= n) continue;
+    float* p = dst + size_t(row) * C + o0 + col0;
+#pragma unroll
+    for (int j = 0; j < Warps<C>::NO; ++j)
+      store2(p + 8 * j, acc[j][2 * h], acc[j][2 * h + 1]);
+  }
+}
 
 // Pass (a): dq and D for one (query tile, batch).
 template <int C>
-__global__ void __launch_bounds__(NT)
-attention_bwd_dq_simt(const float* __restrict__ k,
+__global__ void __launch_bounds__(NT, 1)
+attention_bwd_dq_tf32(const float* __restrict__ k,
                       const float* __restrict__ q,
                       const float* __restrict__ m,
                       const float* __restrict__ out,
@@ -148,128 +243,102 @@ attention_bwd_dq_simt(const float* __restrict__ k,
                       const float* __restrict__ g,
                       float* __restrict__ dq, float* __restrict__ dvec,
                       int n) {
-  constexpr int T = tile<C>();
-  constexpr int TM = T / ROWS;    // query rows per thread
-  constexpr int TS = T / LANES;   // key columns per thread
-  constexpr int TN = C / LANES;   // output columns per thread
-  constexpr int QS = C + 1;
-  constexpr int PS = T + 1;
-
+  using W = Warps<C>;
+  constexpr int T = W::T, TILE = T * C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ds = reinterpret_cast<float*>(smem_raw);   // T x PS dS
-  float* qs = ds + T * PS;        // T x QS queries
-  float* gs = qs + T * QS;        // T x QS output gradients
-  float* ks = gs + T * QS;        // T x QS keys
-  float* ms = ks + T * QS;        // T x QS values
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* gs = qs + TILE;
+  float* ring = gs + TILE;  // stage st: K at ring + 2*st*TILE, M next
+  float* ds = ring + 2 * STAGES * TILE;  // (T, T) dS
+  float* vec = ds + T * T;               // lse and D of the query tile
 
-  const int tid = threadIdx.x;
-  const int cg = tid % LANES;
-  const int rg = tid / LANES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * (warp % W::WM);           // the warp's query rows
+  const int s0 = (T / W::WN) * (warp / W::WM);  // its keys in S
+  const int o0 = (C / W::WN) * (warp / W::WM);  // its columns of dq
   const size_t base = size_t(blockIdx.y) * n * C;
   const size_t vbase = size_t(blockIdx.y) * n;
   const int q0 = blockIdx.x * T;
+  const int tiles = (n + T - 1) / T;
 
-  stage<C, T>(qs, q, base, q0, n);
-  stage<C, T>(gs, g, base, q0, n);
-  __syncthreads();
+  auto fill = [&](int t) {  // K and M of key tile t into its stage
+    float* ks = ring + 2 * (t % STAGES) * TILE;
+    const size_t at = base + size_t(t) * TILE;
+    tf32::stage_tile<T, C, NT>(ks, k + at, n - t * T, tid);
+    tf32::stage_tile<T, C, NT>(ks + TILE, m + at, n - t * T, tid);
+  };
+  tf32::stage_tile<T, C, NT>(qs, q + base + size_t(q0) * C, n - q0, tid);
+  tf32::stage_tile<T, C, NT>(gs, g + base + size_t(q0) * C, n - q0, tid);
+  fill(0);
+  cp_async_commit();
+  if (tiles > 1) fill(1);
+  cp_async_commit();  // one group per tile, empty past the last
 
-  // D_j = g_j . out_j, reduced over the half-warp that owns row j
-  float dj[TM], lj[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = rg + ROWS * i;
-    const bool ok = q0 + row < n;
+  {  // D_j = g_j . out_j: NT / T neighbouring threads a row
+    constexpr int RT = NT / T;
+    const int r = tid / RT, row = q0 + r;
     float part = 0.f;
-    if (ok) {
-#pragma unroll
-      for (int t = 0; t < TN; ++t)
-        part = fmaf(gs[row * QS + cg + 16 * t],
-                    out[base + size_t(q0 + row) * C + cg + 16 * t], part);
+    if (row < n) {
+      const size_t at = base + size_t(row) * C;
+      for (int c = tid % RT; c < C; c += RT)
+        part = fmaf(g[at + c], out[at + c], part);
     }
-    dj[i] = half_warp_sum(part);
-    lj[i] = ok ? lse[vbase + q0 + row] : 0.f;
-    if (ok && cg == 0) dvec[vbase + q0 + row] = dj[i];
+#pragma unroll
+    for (int off = RT / 2; off > 0; off >>= 1)
+      part += __shfl_xor_sync(0xffffffffu, part, off);
+    if (tid % RT == 0) {
+      vec[r] = row < n ? lse[vbase + row] : 0.f;
+      vec[T + r] = part;
+      if (row < n) dvec[vbase + row] = part;
+    }
+  }
+  __syncthreads();
+  const int gr = lane / 4, col0 = 2 * (lane % 4);
+  float lj[2], dj[2];  // of rows r0 + gr + 8h
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    lj[h] = vec[r0 + gr + 8 * h];
+    dj[h] = vec[T + r0 + gr + 8 * h];
   }
 
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int t = 0; t < TN; ++t) acc[i][t] = 0.f;
-
-  for (int k0 = 0; k0 < n; k0 += T) {
-    __syncthreads();  // the previous key tile and dS are consumed
-    stage<C, T>(ks, k, base, k0, n);
-    stage<C, T>(ms, m, base, k0, n);
+  float acc[W::NO][4] = {};
+  for (int t = 0; t < tiles; ++t) {
+    const float* ks = ring + 2 * (t % STAGES) * TILE;
+    const int k0 = t * T;
+    cp_async_wait<1>();  // tile t has landed
     __syncthreads();
 
-    // s = q_j . k_i and dP = g_j . m_i for this thread's rows and columns
-    float s[TM][TS], dp[TM][TS];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TS; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < C; ++c) {
-      float qv[TM], gv[TM], kv[TS], mv[TS];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        qv[i] = qs[(rg + ROWS * i) * QS + c];
-        gv[i] = gs[(rg + ROWS * i) * QS + c];
-      }
-#pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        kv[j] = ks[(cg + LANES * j) * QS + c];
-        mv[j] = ms[(cg + LANES * j) * QS + c];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TS; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(gv[i], mv[j], dp[i][j]);
-        }
-    }
+    float s[W::NS][4] = {}, dp[W::NS][4] = {};
+    logits<C>(s, dp, qs, ks, gs, ks + TILE, r0, s0, lane);  // Q.K^T, G.M^T
     // dS = p (dP - D); keys beyond n contribute nothing
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int j = 0; j < W::NS; ++j)
 #pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        const int col = cg + LANES * j;
-        const float p = (k0 + col < n) ? expf(s[i][j] - lj[i]) : 0.f;
-        ds[(rg + ROWS * i) * PS + col] = p * (dp[i][j] - dj[i]);
+      for (int h = 0; h < 2; ++h) {
+        const int col = s0 + 8 * j + col0;
+        float v[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[j][2 * h + e] - lj[h];
+          const float p = k0 + col + e < n ? exp2f(x * LOG2E) : 0.f;
+          v[e] = p * (dp[j][2 * h + e] - dj[h]);
+        }
+        tf32::store2<T>(ds, r0 + gr + 8 * h, col, v[0], v[1]);
       }
     __syncthreads();
+    accumulate<C>(acc, ds, ks, r0, o0, lane);  // dq += dS.K
 
-    // dq += dS (T x T) . K (T x C)
-#pragma unroll 4
-    for (int kk = 0; kk < T; ++kk) {
-      float dv[TM], kv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) dv[i] = ds[(rg + ROWS * i) * PS + kk];
-#pragma unroll
-      for (int t = 0; t < TN; ++t) kv[t] = ks[kk * QS + cg + LANES * t];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int t = 0; t < TN; ++t) acc[i][t] = fmaf(dv[i], kv[t], acc[i][t]);
-    }
+    __syncthreads();  // every warp is done with this stage and dS
+    if (t + STAGES < tiles) fill(t + STAGES);
+    cp_async_commit();
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + rg + ROWS * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int t = 0; t < TN; ++t)
-      dq[base + size_t(row) * C + cg + LANES * t] = acc[i][t];
-  }
+  store_rows<C>(dq + base, acc, q0 + r0, o0, n, lane);
 }
 
 // Pass (b): dk and dm for one (key tile, batch).
 template <int C>
-__global__ void __launch_bounds__(NT)
-attention_bwd_dkdm_simt(const float* __restrict__ k,
+__global__ void __launch_bounds__(NT, 1)
+attention_bwd_dkdm_tf32(const float* __restrict__ k,
                         const float* __restrict__ q,
                         const float* __restrict__ m,
                         const float* __restrict__ lse,
@@ -277,124 +346,85 @@ attention_bwd_dkdm_simt(const float* __restrict__ k,
                         const float* __restrict__ dvec,
                         float* __restrict__ dk, float* __restrict__ dm,
                         int n) {
-  constexpr int T = tile<C>();
-  constexpr int TM = T / ROWS;    // key rows per thread
-  constexpr int TS = T / LANES;   // query columns per thread
-  constexpr int TN = C / LANES;   // output columns per thread
-  constexpr int QS = C + 1;
-  constexpr int PS = T + 1;
-
+  using W = Warps<C>;
+  constexpr int T = W::T, TILE = T * C;
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ps = reinterpret_cast<float*>(smem_raw);   // T x PS p
-  float* ds = ps + T * PS;        // T x PS dS
-  float* ls = ds + T * PS;        // T      lse of the query tile
-  float* dl = ls + T;             // T      D of the query tile
-  float* ks = dl + T;             // T x QS keys
-  float* ms = ks + T * QS;        // T x QS values
-  float* qs = ms + T * QS;        // T x QS queries
-  float* gs = qs + T * QS;        // T x QS output gradients
+  float* kt = reinterpret_cast<float*>(smem_raw);
+  float* mt = kt + TILE;
+  float* ring = mt + TILE;  // stage st: Q at ring + 2*st*TILE, G next
+  float* ps = ring + 2 * STAGES * TILE;  // (T, T) p^T
+  float* ds = ps + T * T;                // (T, T) dS^T
+  float* vec = ds + T * T;  // stage st's (lse, D) pairs at vec + 2*T*st
 
-  const int tid = threadIdx.x;
-  const int cg = tid % LANES;
-  const int rg = tid / LANES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = 16 * (warp % W::WM);           // the warp's key rows
+  const int s0 = (T / W::WN) * (warp / W::WM);  // its queries in S^T
+  const int o0 = (C / W::WN) * (warp / W::WM);  // its columns of dk, dm
   const size_t base = size_t(blockIdx.y) * n * C;
   const size_t vbase = size_t(blockIdx.y) * n;
   const int i0 = blockIdx.x * T;
+  const int tiles = (n + T - 1) / T;
 
-  stage<C, T>(ks, k, base, i0, n);
-  stage<C, T>(ms, m, base, i0, n);
+  auto fill = [&](int t) {  // Q and G of query tile t into its stage
+    float* qs = ring + 2 * (t % STAGES) * TILE;
+    const size_t at = base + size_t(t) * TILE;
+    tf32::stage_tile<T, C, NT>(qs, q + at, n - t * T, tid);
+    tf32::stage_tile<T, C, NT>(qs + TILE, g + at, n - t * T, tid);
+  };
+  tf32::stage_tile<T, C, NT>(kt, k + base + size_t(i0) * C, n - i0, tid);
+  tf32::stage_tile<T, C, NT>(mt, m + base + size_t(i0) * C, n - i0, tid);
+  fill(0);
+  cp_async_commit();
+  if (tiles > 1) fill(1);
+  cp_async_commit();  // one group per tile, empty past the last
 
-  float dk_acc[TM][TN], dm_acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int t = 0; t < TN; ++t) dk_acc[i][t] = dm_acc[i][t] = 0.f;
-
-  for (int j0 = 0; j0 < n; j0 += T) {
-    __syncthreads();  // the previous query tile, p and dS are consumed
-    stage<C, T>(qs, q, base, j0, n);
-    stage<C, T>(gs, g, base, j0, n);
-    for (int e = tid; e < T; e += NT) {
-      const bool ok = j0 + e < n;
-      ls[e] = ok ? lse[vbase + j0 + e] : 0.f;
-      dl[e] = ok ? dvec[vbase + j0 + e] : 0.f;
+  const int gr = lane / 4, col0 = 2 * (lane % 4);
+  float dm_acc[W::NO][4] = {}, dk_acc[W::NO][4] = {};
+  for (int t = 0; t < tiles; ++t) {
+    const int st = t % STAGES, j0 = t * T;
+    const float* qs = ring + 2 * st * TILE;
+    const float* gs = qs + TILE;
+    float* lv = vec + 2 * T * st;
+    if (tid < 2 * T) {  // this stage's (lse, D) pairs; read two tiles ago
+      const int j = tid / 2;
+      const bool ok = j0 + j < n;
+      lv[tid] = ok ? (tid % 2 ? dvec : lse)[vbase + j0 + j] : 0.f;
     }
+    cp_async_wait<1>();  // tile t has landed
     __syncthreads();
 
-    // s = k_i . q_j and dP = m_i . g_j for this thread's rows and columns
-    float s[TM][TS], dp[TM][TS];
+    float s[W::NS][4] = {}, dp[W::NS][4] = {};
+    logits<C>(s, dp, kt, qs, mt, gs, r0, s0, lane);  // K.Q^T, M.G^T
+    // p^T and dS^T; queries beyond n contribute nothing
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int j = 0; j < W::NS; ++j) {
+      const int col = s0 + 8 * j + col0;
+      // (lse, D) of queries col and col + 1
+      const float4 ld = *reinterpret_cast<const float4*>(lv + 2 * col);
+      const float l[2] = {ld.x, ld.z}, d[2] = {ld.y, ld.w};
 #pragma unroll
-      for (int j = 0; j < TS; ++j) s[i][j] = dp[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < C; ++c) {
-      float kv[TM], mv[TM], qv[TS], gv[TS];
+      for (int h = 0; h < 2; ++h) {
+        float p[2], v[2];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        kv[i] = ks[(rg + ROWS * i) * QS + c];
-        mv[i] = ms[(rg + ROWS * i) * QS + c];
-      }
-#pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        qv[j] = qs[(cg + LANES * j) * QS + c];
-        gv[j] = gs[(cg + LANES * j) * QS + c];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TS; ++j) {
-          s[i][j] = fmaf(kv[i], qv[j], s[i][j]);
-          dp[i][j] = fmaf(mv[i], gv[j], dp[i][j]);
+        for (int e = 0; e < 2; ++e) {
+          const float x = s[j][2 * h + e] - l[e];
+          p[e] = j0 + col + e < n ? exp2f(x * LOG2E) : 0.f;
+          v[e] = p[e] * (dp[j][2 * h + e] - d[e]);
         }
-    }
-    // p and dS; queries beyond n contribute nothing
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        const int col = cg + LANES * j;
-        const float p = (j0 + col < n) ? expf(s[i][j] - ls[col]) : 0.f;
-        ps[(rg + ROWS * i) * PS + col] = p;
-        ds[(rg + ROWS * i) * PS + col] = p * (dp[i][j] - dl[col]);
+        tf32::store2<T>(ps, r0 + gr + 8 * h, col, p[0], p[1]);
+        tf32::store2<T>(ds, r0 + gr + 8 * h, col, v[0], v[1]);
       }
+    }
     __syncthreads();
+    accumulate<C>(dm_acc, ps, gs, r0, o0, lane);  // dm += p^T.G
+    accumulate<C>(dk_acc, ds, qs, r0, o0, lane);  // dk += dS^T.Q
 
-    // dm += P (T x T) . G (T x C), dk += dS (T x T) . Q (T x C)
-#pragma unroll 2
-    for (int jj = 0; jj < T; ++jj) {
-      float pv[TM], dv[TM], gv[TN], qv[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) {
-        pv[i] = ps[(rg + ROWS * i) * PS + jj];
-        dv[i] = ds[(rg + ROWS * i) * PS + jj];
-      }
-#pragma unroll
-      for (int t = 0; t < TN; ++t) {
-        gv[t] = gs[jj * QS + cg + LANES * t];
-        qv[t] = qs[jj * QS + cg + LANES * t];
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int t = 0; t < TN; ++t) {
-          dm_acc[i][t] = fmaf(pv[i], gv[t], dm_acc[i][t]);
-          dk_acc[i][t] = fmaf(dv[i], qv[t], dk_acc[i][t]);
-        }
-    }
+    __syncthreads();  // every warp is done with this stage, p^T and dS^T
+    if (t + STAGES < tiles) fill(t + STAGES);
+    cp_async_commit();
   }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = i0 + rg + ROWS * i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int t = 0; t < TN; ++t) {
-      const size_t at = base + size_t(row) * C + cg + LANES * t;
-      dk[at] = dk_acc[i][t];
-      dm[at] = dm_acc[i][t];
-    }
-  }
+  store_rows<C>(dk + base, dk_acc, i0 + r0, o0, n, lane);
+  store_rows<C>(dm + base, dm_acc, i0 + r0, o0, n, lane);
 }
 
 template <int C>
@@ -406,9 +436,9 @@ cudaError_t launch(const void* k, const void* q, const void* m,
   constexpr size_t smem_b = dkdm_smem_bytes<C>();
   static_assert(smem_a <= 232448 && smem_b <= 232448,
                 "tile exceeds a Hopper block's shared memory");
-  cudaError_t err = allow_smem<attention_bwd_dq_simt<C>>(smem_a);
+  cudaError_t err = allow_smem<attention_bwd_dq_tf32<C>>(smem_a);
   if (err != cudaSuccess) return err;
-  err = allow_smem<attention_bwd_dkdm_simt<C>>(smem_b);
+  err = allow_smem<attention_bwd_dkdm_tf32<C>>(smem_b);
   if (err != cudaSuccess) return err;
   const float* kt = static_cast<const float*>(k);
   const float* qt = static_cast<const float*>(q);
@@ -416,18 +446,18 @@ cudaError_t launch(const void* k, const void* q, const void* m,
   const float* gt = static_cast<const float*>(g);
   constexpr int T = tile<C>();
   const dim3 grid((n + T - 1) / T, b);
-  attention_bwd_dq_simt<C><<<grid, NT, smem_a, stream>>>(
+  attention_bwd_dq_tf32<C><<<grid, NT, smem_a, stream>>>(
       kt, qt, mt, static_cast<const float*>(out), lse, gt,
       static_cast<float*>(dq), dvec, n);
   err = cudaGetLastError();
   if (err != cudaSuccess) return err;
-  attention_bwd_dkdm_simt<C><<<grid, NT, smem_b, stream>>>(
+  attention_bwd_dkdm_tf32<C><<<grid, NT, smem_b, stream>>>(
       kt, qt, mt, lse, gt, dvec, static_cast<float*>(dk),
       static_cast<float*>(dm), n);
   return cudaGetLastError();
 }
 
-}  // namespace simt
+}  // namespace f32
 
 // ------------------------------------------- bf16 modes: tensor cores
 
@@ -748,19 +778,19 @@ cudaError_t dispatch_tc(const void* k, const void* q, const void* m,
   }
 }
 
-cudaError_t dispatch_simt(const void* k, const void* q, const void* m,
-                          const void* out, const float* lse, const void* g,
-                          void* dk, void* dq, void* dm, float* dvec, int b,
-                          int n, int c, cudaStream_t s) {
+cudaError_t dispatch_f32(const void* k, const void* q, const void* m,
+                         const void* out, const float* lse, const void* g,
+                         void* dk, void* dq, void* dm, float* dvec, int b,
+                         int n, int c, cudaStream_t s) {
   switch (c) {
     case 64:
-      return simt::launch<64>(k, q, m, out, lse, g, dk, dq, dm, dvec, b, n, s);
+      return f32::launch<64>(k, q, m, out, lse, g, dk, dq, dm, dvec, b, n, s);
     case 128:
-      return simt::launch<128>(k, q, m, out, lse, g, dk, dq, dm, dvec, b, n,
-                               s);
+      return f32::launch<128>(k, q, m, out, lse, g, dk, dq, dm, dvec, b, n,
+                              s);
     case 256:
-      return simt::launch<256>(k, q, m, out, lse, g, dk, dq, dm, dvec, b, n,
-                               s);
+      return f32::launch<256>(k, q, m, out, lse, g, dk, dq, dm, dvec, b, n,
+                              s);
     default:
       return cudaErrorInvalidValue;
   }
@@ -774,8 +804,8 @@ cudaError_t dispatch_simt(const void* k, const void* q, const void* m,
 // bfloat16 (the wrapper rounds float32 inputs before the launch) and out,
 // dk, dq and dm are float32 or bfloat16 as `in_bf16` says. `lse` is the
 // forward's (B, N) float32 residual and `dvec` (B, N) float32 scratch that
-// pass (a) fills with D for pass (b). The tensor-core modes take k, q, m
-// and g on 16-byte boundaries. Returns a cudaError_t (0 on success);
+// pass (a) fills with D for pass (b). Every mode takes k, q, m and g on
+// 16-byte boundaries. Returns a cudaError_t (0 on success);
 // allocates nothing and does not synchronize.
 extern "C" int hupr_attention_bwd(const void* k, const void* q, const void* m,
                                   const void* out, const void* lse,
@@ -789,8 +819,8 @@ extern "C" int hupr_attention_bwd(const void* k, const void* q, const void* m,
   if (!bf16_ops)
     return int(in_bf16 ? dispatch_tc<bf16, false>(k, q, m, out, lf, g, dk, dq,
                                                   dm, dvf, b, n, c, s)
-                       : dispatch_simt(k, q, m, out, lf, g, dk, dq, dm, dvf,
-                                       b, n, c, s));
+                       : dispatch_f32(k, q, m, out, lf, g, dk, dq, dm, dvf,
+                                      b, n, c, s));
   return int(in_bf16 ? dispatch_tc<bf16, true>(k, q, m, out, lf, g, dk, dq,
                                                dm, dvf, b, n, c, s)
                      : dispatch_tc<float, true>(k, q, m, out, lf, g, dk, dq,

@@ -57,10 +57,13 @@
 // a call at that shape is a few microseconds of work, and splitting it
 // (column halves of C, each recomputing S) is left for later.
 //
-// The f32 mode (attention_fwd_simt) keeps the float32 FMA body (wgmma's
-// tf32 takes only K-major operands; 3xTF32 is the next body for this mode):
-// a (64, C) query tile per 256 threads, float32 tiles padded by one float so
-// that the column walks read 16 distinct banks, P through shared memory.
+// The f32 mode (attention_fwd_simt) keeps the float32 FMA body: a (64, C)
+// query tile per 256 threads, float32 tiles padded by one float so that the
+// column walks read 16 distinct banks, P through shared memory. Its next
+// body is the backward's (attention_bwd.cu, the _tf32 kernels): 3xTF32 on
+// mma.sync (wgmma's tf32 takes only K-major operands, and p.m contracts
+// over M's rows), from tf32.cuh's swizzled float tiles, splits, fragment
+// loads and mma3.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>

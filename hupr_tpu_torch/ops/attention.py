@@ -20,7 +20,9 @@ each query's log-sum-exp, the residual of the backward.
 `attention_bwd` replaces hupr_tpu/ops/attention.py:_attention_bwd_pallas
 with the two-pass CUDA kernel in csrc/attention_bwd.cu (10*B*N^2*C flops,
 bound by operations; the source says how it does without the TPU kernel's
-carry across q-blocks). `FusedSpatialAttention` ties the two together as
+carry across q-blocks), on the tensor cores in every mode: in float32 as
+three TF32 products each (3xTF32, csrc/tf32.cuh), which keep float32's
+accuracy. `FusedSpatialAttention` ties the two together as
 `fused_spatial_attention`'s custom VJP does, and `spatial_attention` is
 what the decoder calls: the Function when autograd records, the forward
 kernel alone otherwise.
@@ -224,16 +226,15 @@ def reset_launch_counts() -> None:
 
 
 def _operand_tensors(tensors, mode: str):
-    """The operands as the kernels read them. The tensor-core modes (all
-    but 'f32') take bfloat16 operands on 16-byte boundaries (cp.async's
-    copies): f32_bf16ops rounds its float32 inputs here, one cast each,
-    to the values the TPU kernel rounds on load; a tensor that starts off
-    a boundary is copied."""
-    if mode == "f32":
-        return tensors
+    """The operands as the kernels read them, on 16-byte boundaries
+    (cp.async's copies; a tensor that starts off one is copied). The
+    tensor-core bf16 modes (all but 'f32') take bfloat16 operands:
+    f32_bf16ops rounds its float32 inputs here, one cast each, to the values
+    the TPU kernel rounds on load."""
     out = []
     for t in tensors:
-        t = t.to(torch.bfloat16)
+        if mode != "f32":
+            t = t.to(torch.bfloat16)
         out.append(t.clone() if t.data_ptr() % 16 else t)
     return out
 

@@ -8,6 +8,9 @@ Skipped without a CUDA device. On a machine with one:
 (--noconftest: tests/conftest.py sets up JAX, which these tests do not use.)
 """
 
+import importlib.util
+import os
+
 import pytest
 import torch
 
@@ -87,7 +90,7 @@ def _bwd_inputs(b, n, c, device, seed):
 ] + [(2, n, c) for c in (64, 128, 256) for n in (1, 65, 100, 1000)])
 def test_attention_bwd_matches_plain(cuda, b, n, c):
     """atol 1e-3 + rtol 1e-4, the bar of tests/test_attention.py for the
-    Pallas backward: both float32, the kernel's tile-ordered FMA sums
+    Pallas backward: both float32, the kernel's tile-ordered 3xTF32 sums
     against cuBLAS products over (N, N) matrices. Ragged N masks missing
     keys and queries in both passes."""
     k, q, m, out, lse, g = _bwd_inputs(b, n, c, cuda, seed=n + c)
@@ -98,6 +101,25 @@ def test_attention_bwd_matches_plain(cuda, b, n, c):
     assert attention_bwd.launches == before + 1
     for name, a, w in zip(("dk", "dq", "dm"), got, want):
         torch.testing.assert_close(a, w, atol=1e-3, rtol=1e-4, msg=name)
+
+
+@pytest.mark.parametrize("b,n,c", [(2, 4096, 64), (2, 1024, 128),
+                                   (2, 256, 256)])
+def test_attention_bwd_f32_within_rel_bar(cuda, b, n, c):
+    """Each float32 gradient within chip_smoke.REL_F32_BWD (relative norm
+    error) of the plain version at the path shapes: the bar that 3xTF32
+    keeps and one TF32 product misses (tests/test_torch_tf32.py)."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    k, q, m, out, lse, g = _bwd_inputs(b, n, c, cuda, seed=n + c + 1)
+    got = attention_bwd(k, q, m, out, lse, g)
+    want = attention_bwd_plain(k, q, m, out, lse, g)
+    torch.cuda.synchronize()
+    for name, a, w in zip(("dk", "dq", "dm"), got, want):
+        assert smoke.rel_err(a, w) <= smoke.REL_F32_BWD, name
 
 
 @pytest.mark.parametrize("n,c", [(4096, 64), (1024, 128), (256, 256),
@@ -343,7 +365,8 @@ def test_kernels_repeat_bit_for_bit(cuda, b, n, c, dtype, bf16_ops):
         assert torch.equal(a, w), name
 
 
-@pytest.mark.parametrize("dtype,bf16_ops", BF16_MODES, ids=MODE_IDS)
+@pytest.mark.parametrize("dtype,bf16_ops", [(torch.float32, False)]
+                         + BF16_MODES, ids=["f32"] + MODE_IDS)
 def test_tensor_core_modes_take_unaligned_inputs(cuda, dtype, bf16_ops):
     """cp.async copies 16 bytes at a time: an input that starts off a
     16-byte boundary (a contiguous view at an odd offset) gives the same
