@@ -78,6 +78,13 @@ GRAD_ATOL, GRAD_RTOL = 1e-3, 1e-4
 # its tensor cores may not round their float32 sums to nearest) and 27x
 # under the second
 REL_F32_BWD = 2.0 ** -16
+# the float32 forward's output against the plain version, the same way: the
+# CPU model of its 3xTF32 arithmetic (tests/test_torch_tf32.py) reads at
+# most 7.3e-7 on logits of unit spread and 2.6e-6 on N(0, 1) inputs (a
+# nearly one-hot softmax, as check_attention draws them), and at least
+# 3.95e-4 in one TF32 product; the bar is 6x over the worst of the first and
+# 26x under the second
+REL_F32_FWD = 2.0 ** -16
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # kernel path vs plain-attention path over the train steps: the weights
 # within the bars of tests/test_reference_parity.py in both compute dtypes
@@ -243,8 +250,9 @@ def attention_bound(kind: str, b: int, n: int, c: int, mode: str, peaks,
 
 
 def check_attention(torch, peaks):
-    """Kernel vs plain version at the three path shapes; returns per-shape
-    results."""
+    """Kernel (float32: 3xTF32 on the tensor cores) vs plain version at the
+    three path shapes, at ATTN_TOL and REL_F32_FWD, bit-identical on a
+    second call; returns per-shape results."""
     from hupr_tpu_torch.ops.attention import (attention_flops,
                                               attention_fwd, attention_plain)
     from hupr_tpu_torch.utils.device import float32_math
@@ -256,9 +264,12 @@ def check_attention(torch, peaks):
                                device="cuda") for _ in range(3))
         with torch.inference_mode(), float32_math():
             got = attention_fwd(k, q, m)
+            again = attention_fwd(k, q, m)
             want = attention_plain(k, q, m)
             torch.cuda.synchronize()
             err = (got - want).abs().max().item()
+            rel = rel_err(got, want)
+            repeats = torch.equal(got, again)
             kernel_ms = cuda_ms(torch, lambda: attention_fwd(k, q, m), 10)
             plain_ms = cuda_ms(torch, lambda: attention_plain(k, q, m), 5)
             library_ms = cuda_ms(torch, lambda: sdpa(q, k, m), 10)
@@ -267,16 +278,21 @@ def check_attention(torch, peaks):
                                              peaks)
         row = {"kernel": "attention_fwd", "mode": "f32", "B": ATTN_BATCH,
                "N": n, "C": c,
-               "max_abs_err": err, "kernel_ms": kernel_ms,
+               "max_abs_err": err, "rel_err": rel,
+               "repeats_bit_for_bit": repeats, "kernel_ms": kernel_ms,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "tflops": flops / kernel_ms / 1e9}
         print(json.dumps(row), flush=True)
-        if not err <= ATTN_TOL:
+        if not (err <= ATTN_TOL and rel <= REL_F32_FWD):
             raise AssertionError(f"attention_fwd at N={n}, C={c}: max abs "
-                                 f"error {err} > {ATTN_TOL}")
+                                 f"error {err} > {ATTN_TOL} or relative "
+                                 f"error {rel} > {REL_F32_FWD}")
+        if not repeats:
+            raise AssertionError(f"attention_fwd at N={n}, C={c}: two calls "
+                                 f"gave different bits")
         rows.append(row)
-        del k, q, m, got, want
+        del k, q, m, got, again, want
     return rows
 
 
@@ -1200,11 +1216,21 @@ def main() -> int:
     per_step = f"one train step: 12 launches, {shapes}, B={TRAIN_BATCH}"
     fwd_src, bwd_src = "hupr_tpu/ops/attention.py:90", \
         "hupr_tpu/ops/attention.py:188"
+    lse_keys = {"kernel_ms": "fwd_with_lse_ms",
+                "plain_ms": "fwd_with_lse_plain_ms",
+                "library_ms": "fwd_with_lse_library_ms",
+                "bound_ms": "fwd_with_lse_bound_ms"}
     entries = [
         kernel_entry("attention_fwd", "f32", "attention_fwd", fwd_src,
                      {"serve": sl["attention_launches"],
                       "train": tr["attention_fwd_launches"]}, rows, 4,
-                     per_request),
+                     per_request,
+                     body="attention_fwd_tf32 (3xTF32 on mma.sync, "
+                          "csrc/tf32.cuh)",
+                     rel_err=max(r["rel_err"] for r in rows),
+                     with_lse_per_step={key: 4 * sum(r[name]
+                                                     for r in bwd_rows)
+                                        for key, name in lse_keys.items()}),
         kernel_entry("attention_bwd", "f32", "attention_bwd", bwd_src,
                      {"serve": 0, "train": tr["attention_bwd_launches"]},
                      bwd_rows, 4, per_step,

@@ -26,13 +26,14 @@
 //     bfloat16's rounding level.
 // That kernel keeps whole (N, C) K and M panels in VMEM; at N = 4096, C = 64
 // one panel is 1 MB, far over the 227 KB a Hopper block can address. So
-// both bodies here stream 64-key tiles through shared memory with an online
+// both bodies here stream key tiles through shared memory with an online
 // softmax: running max, running sum and a (64, C) float32 accumulator per
 // query tile, divided once at the end.
 //
 // Bound: 4*B*N^2*C flops and B*N^2 exps against 16*B*N*C bytes (8*B*N*C in
-// bfloat16), so it is bound by operations: the tensor cores in the bf16
-// modes, with the SFU's exps close behind at C = 64.
+// bfloat16), so it is bound by operations: the tensor cores in every mode
+// (each float32 product counts three times in 3xTF32, below), with the
+// SFU's exps close behind at C = 64 in the bf16 modes.
 //
 // The bf16 modes (attention_fwd_tc) run on the tensor cores. One warpgroup
 // (128 threads) owns 64 query rows, wgmma's M. Per 64-key tile:
@@ -57,167 +58,220 @@
 // a call at that shape is a few microseconds of work, and splitting it
 // (column halves of C, each recomputing S) is left for later.
 //
-// The f32 mode (attention_fwd_simt) keeps the float32 FMA body: a (64, C)
-// query tile per 256 threads, float32 tiles padded by one float so that the
-// column walks read 16 distinct banks, P through shared memory. Its next
-// body is the backward's (attention_bwd.cu, the _tf32 kernels): 3xTF32 on
-// mma.sync (wgmma's tf32 takes only K-major operands, and p.m contracts
-// over M's rows), from tf32.cuh's swizzled float tiles, splits, fragment
-// loads and mma3.
+// The f32 mode (attention_fwd_tf32) runs on the tensor cores in 3xTF32
+// (tf32.cuh): each float32 operand is split into hi and lo tf32 terms at
+// fragment load, and each product is lo.hi + hi.lo + hi.hi into one float32
+// accumulator, which keeps float32's accuracy. Warp-level mma.sync
+// m16n8k8, not wgmma: wgmma's tf32 takes only K-major operands, and p.m
+// contracts over the rows of M. Four warps own 64 query rows, 16 each (the
+// m of m16n8k8), and stream key tiles (64 keys at C = 64, 32 at C = 128 and
+// 256: tile() says why) through the same two-stage cp.async ring. Per
+// tile, each warp takes S = Q.K^T with two k-steps from each 16-byte load
+// (Q's fragments are split on every load: holding them split in registers
+// at C = 64 took as long), the online softmax on S's accumulator (rows g
+// and g + 8 of the warp, keys 2t and 2t + 1 of each n-tile; row reductions
+// over lanes 1 and 2), and o += P.M with P never leaving the registers: the
+// accumulator's key pairs (2t, 2t + 1) are not m16n8k8's A layout (t,
+// t + 4), but a product summed over k in another order is the same
+// product, so A takes key 2t as its k = t and key 2t + 1 as k = t + 4, and
+// M's B fragment reads rows 2t and 2t + 1 of the tile (tf32.cuh,
+// frag_a_pairs and PairCols). M is staged in its own swizzle (the pairs
+// layout), which makes those column reads free of bank conflicts; K's key
+// would leave them 2-way conflicted. Every float32 sum on the tensor cores
+// runs in short chains from zero, added in float32 (the kernel says why):
+// the logits 32 columns of C at a time, P.M one tile and 8 n-tiles at a
+// time. p = exp2f((s - max) log2 e), as in the bf16 modes. The grid is one
+// block per 64 queries, as in the bf16 modes (not grown at (256, 256), where
+// the card is already under-filled).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
 using namespace hopper;
 
 constexpr int BQ = 64;  // queries per block
-constexpr int BK = 64;  // keys per tile
+constexpr int BK = 64;  // keys per tile of the bf16 modes
 
-// ------------------------------------------------------------ f32: FMAs
+// -------------------------------------------- f32: 3xTF32 on mma.sync
 
-namespace simt {
+namespace f32 {
 
-constexpr int NT = 256;     // threads per block
-constexpr int LANES = 16;   // threads sharing one query row (half a warp)
-constexpr int TM = BQ / (NT / LANES);  // query rows per thread (4)
+constexpr int NT = 128;  // threads per block: 4 warps, 16 query rows each
+constexpr int STAGES = 2;
+
+// Keys per tile: 64 at C = 64 (80 KB of shared memory a block); 32 at
+// C = 128 (96 KB), where 64 would take 160 KB and leave one block of four
+// warps an SM, and at C = 256 (192 KB), where 64 would not fit 227 KB
+template <int C>
+__host__ __device__ constexpr int tile() { return C == 64 ? 64 : 32; }
+
+// Columns of C a logits chunk: each chunk's products are summed from zero
+// and added to the logits in float32 (below)
+constexpr int SC = 32;
 
 template <int C>
 constexpr size_t smem_bytes() {
-  return sizeof(float) * (size_t(BQ) * (BK + 1) + size_t(BQ) * (C + 1) +
-                          size_t(BK) * (C + 1) + size_t(BK) * C);
+  return 4 * (size_t(BQ) * C + size_t(STAGES) * 2 * tile<C>() * C);
 }
 
-// Thread t owns query rows rg + 16*i (i < TM) and columns cg + 16*j, with
-// rg = t / 16 and cg = t % 16. The 16 threads of a row are one half-warp,
-// so row reductions are xor-shuffles within it.
+// Warp w owns query rows 16w .. 16w + 15 of the block's 64. Per key tile:
+// S (16 x T) = Q.K^T, the online softmax on S's accumulator in registers,
+// then o (16 x C) += P.M with P's A fragments taken from those registers.
+// The tensor cores' float32 sums do not round to nearest (hopper.cuh,
+// promote_tiles), and the logits feed exp: chaining all of C's 3C/8
+// products into one accumulator left outputs up to 1.1e-4 from the plain
+// version at (B, N, C) = (32, 256, 256) on N(0, 1) inputs (logits near
+// 60) on an H100, past the float32 bar. So every sum runs in short chains
+// from zero, added in float32: the logits SC columns at a time, and P.M
+// one tile and 8 n-tiles of o at a time.
 template <int C>
 __global__ void __launch_bounds__(NT)
-attention_fwd_simt(const float* __restrict__ k, const float* __restrict__ q,
+attention_fwd_tf32(const float* __restrict__ k, const float* __restrict__ q,
                    const float* __restrict__ m, float* __restrict__ out,
                    float* __restrict__ lse, int n) {
-  constexpr int TN = C / LANES;   // output columns per thread
-  constexpr int TS = BK / LANES;  // logit columns per thread
-  constexpr int QS = C + 1;       // padded row stride of Q and K
-  constexpr int PS = BK + 1;      // padded row stride of the P tile
-
+  constexpr int T = tile<C>(), TILE = T * C;
+  constexpr int NS = T / 8;  // n-tiles of S, k-steps of P.M
+  constexpr int NO = C / 8;  // n-tiles of o
+  constexpr int G = 8;       // n-tiles of o a P.M chain
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ps = reinterpret_cast<float*>(smem_raw);   // BQ x PS
-  float* qs = ps + BQ * PS;                          // BQ x QS
-  float* ks = qs + BQ * QS;                          // BK x QS
-  float* ms = ks + BK * QS;                          // BK x C
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ring = qs + BQ * C;  // stage st: K at ring + 2*st*TILE, M next
 
-  const int tid = threadIdx.x;
-  const int cg = tid % LANES;
-  const int rg = tid / LANES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const size_t base = size_t(blockIdx.y) * n * C;
   const int q0 = blockIdx.x * BQ;
+  const int tiles = (n + T - 1) / T;
 
-  for (int e = tid; e < BQ * C; e += NT) {
-    const int r = e / C, c = e % C;
-    qs[r * QS + c] = (q0 + r < n) ? q[base + size_t(q0 + r) * C + c] : 0.f;
-  }
+  auto fill = [&](int i) {  // K and M of key tile i into its stage
+    float* ks = ring + 2 * (i % STAGES) * TILE;
+    const size_t at = base + size_t(i) * TILE;
+    tf32::stage_tile<T, C, NT>(ks, k + at, n - i * T, tid);
+    tf32::stage_tile<T, C, NT, true>(ks + TILE, m + at, n - i * T, tid);
+  };
+  tf32::stage_tile<BQ, C, NT>(qs, q + base + size_t(q0) * C, n - q0, tid);
+  fill(0);
+  cp_async_commit();
+  if (tiles > 1) fill(1);
+  cp_async_commit();  // one group per tile, empty past the last
 
-  float acc[TM][TN];
-  float row_max[TM], row_sum[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    row_max[i] = -INFINITY;
-    row_sum[i] = 0.f;
-#pragma unroll
-    for (int t = 0; t < TN; ++t) acc[i][t] = 0.f;
-  }
+  // rows 16w + g (and 8 further, the same swizzle key) of Q; rows g + 8j of
+  // K; the keys 2t, 2t + 1 of M
+  const tf32::Chunks<C> rq(16 * warp + g, t), rk(g, t);
+  const tf32::PairCols<C> cols(lane);
 
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed (and Q is staged)
-    for (int e = tid; e < BK * C; e += NT) {
-      const int r = e / C, c = e % C;
-      const bool ok = k0 + r < n;
-      const size_t g = base + size_t(k0 + r) * C + c;
-      ks[r * QS + c] = ok ? k[g] : 0.f;
-      ms[r * C + c] = ok ? m[g] : 0.f;
-    }
+  float o[NO][4] = {};
+  // this thread's rows 16w + g + 8h: running max, partial sums
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+
+  for (int i = 0; i < tiles; ++i) {
+    const float* ks = ring + 2 * (i % STAGES) * TILE;
+    const float* ms = ks + TILE;
+    const int k0 = i * T;
+    cp_async_wait<1>();  // tile i has landed
     __syncthreads();
 
-    // logits s[i][j] = q_row . k_col for this thread's rows and columns
-    float s[TM][TS];
+    // S = Q.K^T, two k-steps from each 16-byte load, SC columns a chain
+    float s[NS][4] = {};
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int c0 = 0; c0 < C; c0 += SC) {
+      float part[NS][4] = {};
 #pragma unroll
-      for (int j = 0; j < TS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int c = 0; c < C; ++c) {
-      float qv[TM], kv[TS];
+      for (int c = c0; c < c0 + SC; c += 16) {
+        tf32::FragA a[2];
+        tf32::frags_a2(rq.load(qs, c), rq.load(qs + 8 * C, c), a);
+        tf32::FragB b[2][NS];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) qv[i] = qs[(rg + 16 * i) * QS + c];
+        for (int j = 0; j < NS; ++j)
+          tf32::frags_b2(rk.load(ks + 8 * j * C, c), b[0][j], b[1][j]);
+        tf32::mma3(part, a[0], b[0]);
+        tf32::mma3(part, a[1], b[1]);
+      }
 #pragma unroll
-      for (int j = 0; j < TS; ++j) kv[j] = ks[(cg + 16 * j) * QS + c];
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+        for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
     }
 
-    // online softmax over this tile's keys; key k0 is always in range, so
-    // every row's tile maximum is finite
+    // online softmax; keys past n (zero rows of K) masked to -inf, and key
+    // k0 is always in range, so every row's tile maximum is finite
+    if (k0 + T > n) {
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
+      for (int j = 0; j < NS; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          if (k0 + 8 * j + 2 * t + e % 2 >= n) s[j][e] = -INFINITY;
+    }
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        if (k0 + cg + 16 * j >= n) s[i][j] = -INFINITY;
-        tmax = fmaxf(tmax, s[i][j]);
-      }
+      for (int j = 0; j < NS; ++j)
+        tmax = fmaxf(tmax, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float nm = fmaxf(mx[h], tmax);
+      alpha[h] = exp2f((mx[h] - nm) * LOG2E);  // 0 on the first tile
+      mx[h] = nm;
+      sum[h] *= alpha[h];
 #pragma unroll
-      for (int off = LANES / 2; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      const float new_max = fmaxf(row_max[i], tmax);
-      const float alpha = expf(row_max[i] - new_max);  // 0 on the first tile
-      float tsum = 0.f;
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        const float p = expf(s[i][j] - new_max);
-        ps[(rg + 16 * i) * PS + cg + 16 * j] = p;
-        tsum += p;
-      }
-#pragma unroll
-      for (int off = LANES / 2; off > 0; off >>= 1)
-        tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
-      row_sum[i] = row_sum[i] * alpha + tsum;
-      row_max[i] = new_max;
-#pragma unroll
-      for (int t = 0; t < TN; ++t) acc[i][t] *= alpha;
+        for (int e = 2 * h; e < 2 * h + 2; ++e) {
+          s[j][e] = exp2f((s[j][e] - nm) * LOG2E);
+          sum[h] += s[j][e];  // the sum takes p as computed
+        }
     }
-    __syncthreads();
 
-    // acc += P (BQ x BK) . M (BK x C)
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[TM], mv[TN];
+    // o = alpha o + P.M, 8 n-tiles of o at a time, each summed over the tile
+    // apart; P's A fragments from the accumulator pairs (tf32.cuh,
+    // frag_a_pairs)
 #pragma unroll
-      for (int i = 0; i < TM; ++i) pv[i] = ps[(rg + 16 * i) * PS + kk];
+    for (int j0 = 0; j0 < NO; j0 += G) {
+      float pm[G][4] = {};
 #pragma unroll
-      for (int t = 0; t < TN; ++t) mv[t] = ms[kk * C + cg + 16 * t];
+      for (int st = 0; st < NS; ++st) {
+        const tf32::FragA a = tf32::frag_a_pairs(s[st]);
+        tf32::FragB b[G];
 #pragma unroll
-      for (int i = 0; i < TM; ++i)
+        for (int j = 0; j < G; ++j)
+          b[j] = cols.load(ms, 8 * st, 8 * (j0 + j));
+        tf32::mma3(pm, a, b);
+      }
 #pragma unroll
-        for (int t = 0; t < TN; ++t) acc[i][t] = fmaf(pv[i], mv[t], acc[i][t]);
+      for (int j = 0; j < G; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          o[j0 + j][e] = fmaf(o[j0 + j][e], alpha[e / 2], pm[j][e]);
     }
+
+    __syncthreads();  // every warp is done with this stage
+    if (i + STAGES < tiles) fill(i + STAGES);
+    cp_async_commit();
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + rg + 16 * i;
-    if (row >= n) continue;
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+  }
 #pragma unroll
-    for (int t = 0; t < TN; ++t)
-      out[base + size_t(row) * C + cg + 16 * t] = acc[i][t] / row_sum[i];
-    if (lse != nullptr && cg == 0)
-      lse[size_t(blockIdx.y) * n + row] = row_max[i] + logf(row_sum[i]);
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
+    if (row >= n) continue;
+    float* dst = out + base + size_t(row) * C + 2 * t;
+#pragma unroll
+    for (int j = 0; j < NO; ++j)
+      store2(dst + 8 * j, o[j][2 * h] / sum[h], o[j][2 * h + 1] / sum[h]);
+    if (lse != nullptr && t == 0)
+      lse[size_t(blockIdx.y) * n + row] = mx[h] + logf(sum[h]);
   }
 }
 
@@ -226,16 +280,16 @@ cudaError_t launch(const void* k, const void* q, const void* m, void* out,
                    float* lse, int b, int n, cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<C>();
   static_assert(smem <= 232448, "tile exceeds a Hopper block's shared memory");
-  cudaError_t err = allow_smem<attention_fwd_simt<C>>(smem);
+  cudaError_t err = allow_smem<attention_fwd_tf32<C>>(smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((n + BQ - 1) / BQ, b);
-  attention_fwd_simt<C><<<grid, NT, smem, stream>>>(
+  attention_fwd_tf32<C><<<grid, NT, smem, stream>>>(
       static_cast<const float*>(k), static_cast<const float*>(q),
       static_cast<const float*>(m), static_cast<float*>(out), lse, n);
   return cudaGetLastError();
 }
 
-}  // namespace simt
+}  // namespace f32
 
 // ------------------------------------------- bf16 modes: tensor cores
 
@@ -401,13 +455,13 @@ cudaError_t dispatch_tc(const void* k, const void* q, const void* m,
   }
 }
 
-cudaError_t dispatch_simt(const void* k, const void* q, const void* m,
-                         void* out, float* lse, int b, int n, int c,
-                         cudaStream_t s) {
+cudaError_t dispatch_f32(const void* k, const void* q, const void* m,
+                        void* out, float* lse, int b, int n, int c,
+                        cudaStream_t s) {
   switch (c) {
-    case 64: return simt::launch<64>(k, q, m, out, lse, b, n, s);
-    case 128: return simt::launch<128>(k, q, m, out, lse, b, n, s);
-    case 256: return simt::launch<256>(k, q, m, out, lse, b, n, s);
+    case 64: return f32::launch<64>(k, q, m, out, lse, b, n, s);
+    case 128: return f32::launch<128>(k, q, m, out, lse, b, n, s);
+    case 256: return f32::launch<256>(k, q, m, out, lse, b, n, s);
     default: return cudaErrorInvalidValue;
   }
 }
@@ -429,7 +483,7 @@ extern "C" int hupr_attention_fwd(const void* k, const void* q, const void* m,
   if (b <= 0 || n <= 0) return int(cudaErrorInvalidValue);
   if (!bf16_ops)
     return int(in_bf16 ? dispatch_tc<bf16, false>(k, q, m, out, lf, b, n, c, s)
-                       : dispatch_simt(k, q, m, out, lf, b, n, c, s));
+                       : dispatch_f32(k, q, m, out, lf, b, n, c, s));
   return int(in_bf16 ? dispatch_tc<bf16, true>(k, q, m, out, lf, b, n, c, s)
                      : dispatch_tc<float, true>(k, q, m, out, lf, b, n, c, s));
 }

@@ -1,7 +1,8 @@
 // Float32 products on Hopper's tensor cores in 3xTF32: the building blocks
-// of the attention kernels' float32 bodies (the backward's now, the
-// forward's next). Warp-level mma.sync m16n8k8 with tf32 operands and
-// float32 accumulators, fed from float32 tiles in shared memory.
+// of the attention kernels' float32 bodies (attention_fwd.cu's and
+// attention_bwd.cu's _tf32 kernels). Warp-level mma.sync m16n8k8 with tf32
+// operands and float32 accumulators, fed from float32 tiles in shared
+// memory.
 //
 // 3xTF32. A float32 x is split once into two tf32 terms, hi = rna(x) and
 // lo = x - hi (rna: round to nearest, ties away, to tf32's 10-bit mantissa;
@@ -33,7 +34,9 @@
 //   - 4-byte loads down the column (load_b_mn: the contraction runs along
 //     the rows), lane (g, t) reading (r0 + t, c0 + g) or (r0 + t + 4,
 //     c0 + g): the chunks c0/4 + g/4 xor key are 8 distinct values;
-//   - 8-byte stores of an accumulator's pairs (store2), (r0 + g, c0 + 2t).
+//   - 8-byte stores of an accumulator's pairs (store2), (r0 + g, c0 + 2t);
+//   - 4-byte loads down the column two rows apart (PairCols), under the
+//     pairs layout below.
 // Padding rows by 4 floats instead would leave the column loads 2-way
 // conflicted. mma.sync takes its fragments thread by thread, so one layout
 // serves A and B in both orientations: no transposed copies.
@@ -57,16 +60,27 @@ __device__ __forceinline__ int swz_key(int r) {
   return ((r & 1) << 2) | (r & 2) | ((r >> 2) & 1);
 }
 
+// The pairs layout: chunk permutation r & 6, for a tile that is read only
+// down its columns at rows r0 + 2t and r0 + 2t + 1 (the forward's M, whose
+// B fragments for P.M take the keys of the logits' accumulator pairs). Lane
+// (g, t) reads chunk c0/4 + g/4 of row r0 + 2t (+ 1): swz_key gives rows 0,
+// 2, 4 and 6 the keys 0, 2, 1 and 3, which leave 4 distinct chunks and a
+// 2-way conflict; r & 6 moves bits 1 and 2 of the chunk by t and leaves bit
+// 0 to g/4, 8 distinct chunks.
+__device__ __forceinline__ int swz_key_pairs(int r) { return r & 6; }
+
 // Float offset of element (r, c) of a swizzled tile with W floats a row
-template <int W>
+template <int W, bool PAIRS = false>
 __device__ __forceinline__ int swz(int r, int c) {
-  return r * W + ((((c >> 2) ^ swz_key(r)) << 2) | (c & 3));
+  const int key = PAIRS ? swz_key_pairs(r) : swz_key(r);
+  return r * W + ((((c >> 2) ^ key) << 2) | (c & 3));
 }
 
 // Copy rows 0..ROWS-1 of the (., W) float32 panel at src into the swizzled
-// tile dst, zero-filling rows >= valid. All NT threads of the block take
-// part, 16 bytes a copy; src must sit on a 16-byte boundary.
-template <int ROWS, int W, int NT>
+// tile dst (the pairs layout with PAIRS), zero-filling rows >= valid. All
+// NT threads of the block take part, 16 bytes a copy; src must sit on a
+// 16-byte boundary.
+template <int ROWS, int W, int NT, bool PAIRS = false>
 __device__ __forceinline__ void stage_tile(float* dst, const float* src,
                                            int valid, int tid) {
   constexpr int CHUNKS = W / 4;
@@ -78,7 +92,7 @@ __device__ __forceinline__ void stage_tile(float* dst, const float* src,
     const int e = tid + i * NT;
     const int r = e / CHUNKS, j = e % CHUNKS;
     const bool ok = r < valid;
-    hopper::cp_async16(base + 4 * swz<W>(r, 4 * j),
+    hopper::cp_async16(base + 4 * swz<W, PAIRS>(r, 4 * j),
                        src + size_t(ok ? r : 0) * W + 4 * j, ok);
   }
 }
@@ -191,6 +205,44 @@ __device__ __forceinline__ void mma3(float (&d)[J][4], const FragA& a,
 #pragma unroll
   for (int j = 0; j < J; ++j) mma(d[j], a.x[0], b[j].x[0]);
 }
+
+// The A fragment of the k-step over keys 8s .. 8s + 7 from the logits'
+// accumulator pairs: n-tile s of an m16n8 accumulator holds (g, 2t),
+// (g, 2t + 1), (g + 8, 2t), (g + 8, 2t + 1), and A takes key 2t as its
+// k = t and key 2t + 1 as k = t + 4. B must take its keys in the same
+// order (PairCols).
+__device__ __forceinline__ FragA frag_a_pairs(const float (&d)[4]) {
+  FragA f;
+  split(d[0], f.x[0][0], f.x[1][0]);
+  split(d[2], f.x[0][1], f.x[1][1]);
+  split(d[1], f.x[0][2], f.x[1][2]);
+  split(d[3], f.x[0][3], f.x[1][3]);
+  return f;
+}
+
+// Offsets of the values lane (g, t) reads for the B fragments that go with
+// frag_a_pairs, from a tile stored [key][n] in the pairs layout: rows k0 +
+// 2t and k0 + 2t + 1 of column n0 + g (k0, n0 multiples of 8). The chunk is
+// (n0/4 + g/4) ^ 2t = 8 (n0/32) + 2 ((n0/8 % 4) ^ t) + g/4: four offsets a
+// thread, one for each n0/8 % 4.
+template <int W>
+struct PairCols {
+  int off[4];
+  __device__ __forceinline__ explicit PairCols(int lane) {
+    const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      off[b] = 2 * t * W + (((2 * (b ^ t)) | (g >> 2)) << 2) + (g & 3);
+  }
+  __device__ __forceinline__ FragB load(const float* s, int k0,
+                                        int n0) const {
+    const float* p = s + k0 * W + off[(n0 >> 3) & 3] + (n0 & ~31);
+    FragB f;
+    split(p[0], f.x[0][0], f.x[1][0]);
+    split(p[W], f.x[0][1], f.x[1][1]);
+    return f;
+  }
+};
 
 // Two consecutive elements (r, c), (r, c + 1) of a swizzled tile (c even)
 template <int W>

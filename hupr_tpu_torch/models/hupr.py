@@ -65,9 +65,13 @@ class HuPRNet(nn.Module):
         return tuple(out)
 
     def pose_from_maps(self, ra, re):
-        """(B, G, R, A, F) chirp maps x2 -> (heatmap, gcn_heatmap)."""
-        ra_l = self.RAradarEncoder(ra.permute(0, 4, 1, 2, 3))
-        re_l = self.REradarEncoder(re.permute(0, 4, 1, 2, 3))
+        """(B, G, R, A, F) chirp maps x2 -> (heatmap, gcn_heatmap). The
+        encoders take NCDHW-contiguous copies: serving's windows arrive as
+        a contiguous (B, G, R, A, F) stack, whose permuted view would be
+        channels_last_3d and send every Encoder3D conv and halving down
+        the card's channels-last kernels."""
+        ra_l = self.RAradarEncoder(ra.permute(0, 4, 1, 2, 3).contiguous())
+        re_l = self.REradarEncoder(re.permute(0, 4, 1, 2, 3).contiguous())
         logits, gcn = self.radarDecoder(*ra_l, *re_l)
         logits, gcn = logits.to(torch.float32), gcn.to(torch.float32)
         return torch.sigmoid(logits)[:, :, None], gcn[:, None]

@@ -12,10 +12,11 @@ csrc/attention_fwd.cu. The work is 4*B*N^2*C flops and B*N^2 exps against
 16*B*N*C bytes, so it is bound by operations. The TPU kernel holds whole
 (N, C) key and value panels in VMEM; a Hopper block cannot (1 MB each at
 N=4096, C=64), so the kernel streams key tiles through shared memory with an
-online softmax and never writes the (N, N) matrix. In float32 it computes
-with float32 FMAs, which hold the 1e-4 bar of the float32 reference; the
-bfloat16 modes run on the tensor cores (wgmma). On request it also returns
-each query's log-sum-exp, the residual of the backward.
+online softmax and never writes the (N, N) matrix. It runs on the tensor
+cores in every mode: in float32 as three TF32 products each (3xTF32 on
+mma.sync, csrc/tf32.cuh), which keep float32's accuracy and the 1e-4 bar of
+the float32 reference; the bfloat16 modes on wgmma. On request it also
+returns each query's log-sum-exp, the residual of the backward.
 
 `attention_bwd` replaces hupr_tpu/ops/attention.py:_attention_bwd_pallas
 with the two-pass CUDA kernel in csrc/attention_bwd.cu (10*B*N^2*C flops,

@@ -38,8 +38,8 @@ def cuda():
     (3, 100, 64), (1, 1, 128), (2, 65, 256), (1, 1000, 64),  # ragged edges
 ])
 def test_attention_fwd_matches_plain(cuda, b, n, c):
-    """atol 1e-4: both float32, the kernel's online softmax and FMA order
-    against cuBLAS matmuls and a two-pass softmax."""
+    """atol 1e-4: both float32, the kernel's online softmax and tile-ordered
+    3xTF32 sums against cuBLAS matmuls and a two-pass softmax."""
     gen = torch.Generator(device=cuda).manual_seed(n)
     k, q, m = (torch.randn((b, n, c), generator=gen, device=cuda)
                for _ in range(3))
@@ -64,6 +64,34 @@ def test_attention_fwd_large_logits_stay_finite(cuda):
     torch.cuda.synchronize()
     assert torch.isfinite(got).all()
     assert (got - want).abs().max().item() <= 1e-4 * want.abs().max().item()
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module, for its bars."""
+    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
+        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
+        "chip_smoke.py"))
+    smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(smoke)
+    return smoke
+
+
+@pytest.mark.parametrize("b,n,c", [(2, 4096, 64), (2, 1024, 128),
+                                   (2, 256, 256), (2, 1000, 128)])
+def test_attention_fwd_f32_within_rel_bar(cuda, b, n, c):
+    """The float32 forward within chip_smoke.REL_F32_FWD (relative norm
+    error) of the plain version at the path shapes and a ragged N, on N(0,
+    1) inputs as chip_smoke.check_attention draws them: the bar that 3xTF32
+    keeps and one TF32 product misses (tests/test_torch_tf32.py)."""
+    smoke = _chip_smoke()
+    gen = torch.Generator(device=cuda).manual_seed(n + c)
+    k, q, m = (torch.randn((b, n, c), generator=gen, device=cuda)
+               for _ in range(3))
+    with torch.inference_mode():
+        got = attention_fwd(k, q, m)
+        want = attention_plain(k, q, m)
+    torch.cuda.synchronize()
+    assert smoke.rel_err(got, want) <= smoke.REL_F32_FWD
 
 
 def test_attention_fwd_refuses_grad_on_cuda(cuda):
@@ -109,11 +137,7 @@ def test_attention_bwd_f32_within_rel_bar(cuda, b, n, c):
     """Each float32 gradient within chip_smoke.REL_F32_BWD (relative norm
     error) of the plain version at the path shapes: the bar that 3xTF32
     keeps and one TF32 product misses (tests/test_torch_tf32.py)."""
-    spec = importlib.util.spec_from_file_location("chip_smoke", os.path.join(
-        os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-        "chip_smoke.py"))
-    smoke = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(smoke)
+    smoke = _chip_smoke()
     k, q, m, out, lse, g = _bwd_inputs(b, n, c, cuda, seed=n + c + 1)
     got = attention_bwd(k, q, m, out, lse, g)
     want = attention_bwd_plain(k, q, m, out, lse, g)

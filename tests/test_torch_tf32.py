@@ -1,20 +1,23 @@
-"""The float32 backward kernel's 3xTF32 arithmetic, modelled on the CPU.
+"""The float32 attention kernels' 3xTF32 arithmetic, modelled on the CPU.
 
-In mode f32 the backward kernel (csrc/attention_bwd.cu, csrc/tf32.cuh)
-runs every product on the tensor cores in tf32: each float32 operand x is
-split into hi = rna(x) (cvt.rna.tf32.f32's rounding: to nearest, ties
-away, to a 10-bit mantissa) and lo = x - hi, which the tensor core
-truncates to tf32, and a product a.b is taken as a_lo.b_hi + a_hi.b_lo +
-a_hi.b_hi into a float32 sum. Here the backward's
-formulas run with exactly those products (tf32 values multiply exactly in
-float32) at two of the model's (N, C) shapes, and must stay within
-chip_smoke.REL_F32_BWD, the relative norm error the kernel is held to on
-the card, of the float64 ideal and of the plain version; one TF32 product
-(hi.hi alone) must miss it, so that the bar tells the two apart. Once, at
-a small shape, the model is also tied to jax.grad through hupr_tpu's
-Pallas backward in interpret mode.
+In mode f32 the forward and backward kernels (csrc/attention_fwd.cu,
+csrc/attention_bwd.cu, csrc/tf32.cuh) run every product on the tensor
+cores in tf32: each float32 operand x is split into hi = rna(x)
+(cvt.rna.tf32.f32's rounding: to nearest, ties away, to a 10-bit mantissa)
+and lo = x - hi, which the tensor core truncates to tf32, and a product a.b
+is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into a float32 sum. Here the
+kernels' formulas run with exactly those products (tf32 values multiply
+exactly in float32) at two of the model's (N, C) shapes, and must stay
+within the relative norm error the kernel is held to on the card
+(chip_smoke.REL_F32_BWD, REL_F32_FWD) of the float64 ideal and of the plain
+version; one TF32 product (hi.hi alone) must miss it, so that the bar tells
+the two apart. The forward is modelled as the kernel runs it: key tiles
+with an online softmax, the logits summed in chunks of C and each tile's
+p.m apart. Once, at a small shape, each model is also tied to hupr_tpu's
+Pallas kernels in interpret mode.
 """
 
+import functools
 import importlib.util
 import os
 
@@ -32,13 +35,24 @@ SHAPES = [(2, 1024, 128), (2, 256, 256)]
 NAMES = ("dk", "dq", "dm")
 
 
+# (kernel, b, n, c, logits): the backward's cases keep their ids; the
+# forward's run on logits of unit spread and on N(0, 1) inputs, as
+# chip_smoke.check_attention draws them (a nearly one-hot softmax)
+CASES = [pytest.param("bwd", *shape, "unit", id="-".join(map(str, shape)))
+         for shape in SHAPES] + [
+    pytest.param("fwd", *shape, logits, id="-".join(map(str, (
+        "fwd", logits) + shape)))
+    for logits in ("unit", "randn") for shape in SHAPES]
+
+
 @pytest.fixture(scope="module")
 def bar():
+    """The card's bar of each kernel, by name."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.REL_F32_BWD
+    return {"bwd": module.REL_F32_BWD, "fwd": module.REL_F32_FWD}
 
 
 def _tf32(x):
@@ -57,15 +71,65 @@ def _split(x):
     return hi, _truncate(x - hi)
 
 
-def _three(eq, a, b):
-    """3xTF32, the kernel's order: lo.hi + hi.lo + hi.hi."""
+def _three_terms(eq, a, b):
+    """3xTF32's three products, in the kernels' order: lo.hi, hi.lo,
+    hi.hi."""
     (ah, al), (bh, bl) = _split(a), _split(b)
-    return (torch.einsum(eq, al, bh) + torch.einsum(eq, ah, bl)) \
-        + torch.einsum(eq, ah, bh)
+    return [torch.einsum(eq, al, bh), torch.einsum(eq, ah, bl),
+            torch.einsum(eq, ah, bh)]
+
+
+def _three(eq, a, b):
+    """3xTF32 into one sum: lo.hi + hi.lo + hi.hi."""
+    lo_hi, hi_lo, hi_hi = _three_terms(eq, a, b)
+    return (lo_hi + hi_lo) + hi_hi
 
 
 def _one(eq, a, b):
     return torch.einsum(eq, _tf32(a), _tf32(b))
+
+
+def _einsum_terms(eq, a, b):
+    return [torch.einsum(eq, a, b)]
+
+
+def _one_terms(eq, a, b):
+    return [_one(eq, a, b)]
+
+
+# products as lists of terms, summed in order: the kernels' 3xTF32, one
+# TF32 product, and the plain product (the ideal, in float64)
+TERMS = {"three": _three_terms, "one": _one_terms, "ideal": _einsum_terms}
+MMS = {"three": _three, "one": _one, "ideal": torch.einsum}
+
+
+def _fwd(k, q, m, terms):
+    """The forward kernel's arithmetic, every product as `terms`: key tiles
+    of 64 at C = 64 and 32 above (csrc/attention_fwd.cu, f32::tile) with an
+    online softmax; the logits summed 32 columns of C at a time and each
+    tile's p.m apart, each added to its running sum in float32. Returns
+    (out, lse)."""
+    b, n, c = k.shape
+    tile = 64 if c == 64 else 32
+    o = torch.zeros_like(q)
+    mx = torch.full((b, n), -np.inf, dtype=q.dtype)
+    total = torch.zeros((b, n), dtype=q.dtype)
+    for k0 in range(0, n, tile):
+        kt = k[:, k0:k0 + tile]
+        s = functools.reduce(torch.add, (
+            functools.reduce(torch.add, terms("bjc,bic->bji",
+                                              q[..., c0:c0 + 32],
+                                              kt[..., c0:c0 + 32]))
+            for c0 in range(0, c, 32)))
+        new_max = torch.maximum(mx, s.amax(dim=2))
+        alpha = torch.exp(mx - new_max)
+        p = torch.exp(s - new_max[..., None])
+        total = total * alpha + p.sum(dim=2)
+        mx = new_max
+        pm = functools.reduce(torch.add, terms("bji,bic->bjc", p,
+                                               m[:, k0:k0 + tile]))
+        o = o * alpha[..., None] + pm
+    return o / total[..., None], mx + torch.log(total)
 
 
 def _bwd(k, q, m, out, lse, g, mm):
@@ -82,17 +146,35 @@ def _rel(got, want) -> float:
     return ((got - want).norm() / want.norm()).item()
 
 
-def _inputs(b, n, c, seed):
-    """k, q, m, g float32 from numpy, logits of unit spread, and the
-    forward's out and lse."""
+def _inputs(b, n, c, seed, logits="unit"):
+    """k, q, m, g float32 from numpy, logits of unit spread (N(0, 1) with
+    logits="randn"), and the forward's out and lse."""
     rng = np.random.default_rng(seed)
     xs = [rng.standard_normal((b, n, c)).astype(np.float32)
           for _ in range(4)]
-    xs[0] *= c ** -0.25
-    xs[1] *= c ** -0.25
+    if logits == "unit":
+        xs[0] *= c ** -0.25
+        xs[1] *= c ** -0.25
     k, q, m, g = (torch.from_numpy(x) for x in xs)
     out, lse = attention.attention_fwd(k, q, m, with_lse=True)
     return k, q, m, out, lse, g
+
+
+def _model(kernel, ts, products):
+    """The kernel's outputs with every product taken as `products` (a key
+    of TERMS), float64 for "ideal": (dk, dq, dm), or (out,) of the
+    forward."""
+    if products == "ideal":
+        ts = [t.double() for t in ts]
+    if kernel == "fwd":
+        return _fwd(*ts[:3], TERMS[products])[:1]
+    return _bwd(*ts, MMS[products])
+
+
+def _plain(kernel, ts):
+    if kernel == "fwd":
+        return (ts[3],)    # _inputs' out: attention_plain on the CPU
+    return attention.attention_bwd_plain(*ts)
 
 
 @pytest.mark.parametrize("x,hi", [
@@ -112,24 +194,29 @@ def test_tf32_rounds_to_nearest_ties_away(x, hi):
     assert abs(got_hi.item() + lo.item() - x) <= 2.0 ** -21 * abs(x)
 
 
-@pytest.mark.parametrize("b,n,c", SHAPES)
-def test_three_tf32_products_within_bar(bar, b, n, c):
-    ts = _inputs(b, n, c, seed=n + c)
-    ideal = _bwd(*(t.double() for t in ts), torch.einsum)
-    plain = attention.attention_bwd_plain(*ts)
-    got = _bwd(*ts, _three)
-    for name, a, i, p in zip(NAMES, got, ideal, plain):
-        assert _rel(a, i) <= bar, name
-        assert _rel(a, p) <= bar, name
+@pytest.mark.parametrize("kernel,b,n,c,logits", CASES)
+def test_three_tf32_products_within_bar(bar, kernel, b, n, c, logits):
+    ts = _inputs(b, n, c, seed=n + c, logits=logits)
+    ideal = _model(kernel, ts, "ideal")
+    plain = _plain(kernel, ts)
+    got = _model(kernel, ts, "three")
+    names = NAMES if kernel == "bwd" else ("out",)
+    for name, a, i, p in zip(names, got, ideal, plain):
+        assert _rel(a, i) <= bar[kernel], name
+        assert _rel(a, p) <= bar[kernel], name
+    if kernel == "fwd":     # the LSE at the card's bar for it
+        lse = _fwd(*ts[:3], _three_terms)[1]
+        torch.testing.assert_close(lse, ts[4], atol=1e-4, rtol=0)
 
 
-@pytest.mark.parametrize("b,n,c", SHAPES)
-def test_one_tf32_product_misses_bar(bar, b, n, c):
-    ts = _inputs(b, n, c, seed=n + c)
-    plain = attention.attention_bwd_plain(*ts)
-    got = _bwd(*ts, _one)
-    for name, a, p in zip(NAMES, got, plain):
-        assert _rel(a, p) > bar, name
+@pytest.mark.parametrize("kernel,b,n,c,logits", CASES)
+def test_one_tf32_product_misses_bar(bar, kernel, b, n, c, logits):
+    ts = _inputs(b, n, c, seed=n + c, logits=logits)
+    plain = _plain(kernel, ts)
+    got = _model(kernel, ts, "one")
+    names = NAMES if kernel == "bwd" else ("out",)
+    for name, a, p in zip(names, got, plain):
+        assert _rel(a, p) > bar[kernel], name
 
 
 def test_model_matches_pallas_backward():
@@ -146,3 +233,16 @@ def test_model_matches_pallas_backward():
     for name, a, w in zip(NAMES, got, want):
         np.testing.assert_allclose(a.numpy(), np.asarray(w), atol=1e-3,
                                    rtol=1e-4, err_msg=name)
+
+
+def test_model_matches_pallas_forward():
+    """At (1, 64, 16) the forward's 3xTF32 model gives what the Pallas
+    forward gives in interpret mode, within the bar of
+    tests/test_attention.py (atol 1e-4), and its LSE is torch.logsumexp of
+    the logits within 1e-4."""
+    k, q, m, _, lse, _ = _inputs(1, 64, 16, seed=6)
+    got, got_lse = _fwd(k, q, m, _three_terms)
+    want = jax_attention.fused_spatial_attention(
+        *(jnp.asarray(t.numpy()) for t in (k, q, m)), 64, True, False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
+    torch.testing.assert_close(got_lse, lse, atol=1e-4, rtol=0)
