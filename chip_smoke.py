@@ -39,7 +39,9 @@
    the step held against the same step through the eager attention.
 9. The port's attention microbenchmark (hupr_tpu_torch.scripts.
    attn_microbench) at (32, 4096, 64), which drives the unfolded forward,
-   after that kernel is held against its twin.
+   after that kernel is held against its twin in both modes (float32 at
+   ATTN_TOL and REL_F32_FWD, f32_bf16ops at the bf16 bars), bit-identical
+   on a second call.
 10. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
@@ -83,7 +85,9 @@ REL_F32_BWD = 2.0 ** -16
 # most 7.3e-7 on logits of unit spread and 2.6e-6 on N(0, 1) inputs (a
 # nearly one-hot softmax, as check_attention draws them), and at least
 # 3.95e-4 in one TF32 product; the bar is 6x over the worst of the first and
-# 26x under the second
+# 26x under the second. It holds the unfolded forward too, whose 3xTF32
+# model reads at most 7.3e-7 and 2.6e-6 the same ways, and one TF32 product
+# at least 4.1e-4
 REL_F32_FWD = 2.0 ** -16
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # kernel path vs plain-attention path over the train steps: the weights
@@ -1030,9 +1034,9 @@ def pallas_bf16_phase(torch, requests, card: str, outs_f32):
 
 def microbench_phase(torch, peaks):
     """The unfolded forward against its twin (float32 and bf16_ops) at the
-    microbenchmark's shape, then the port's microbenchmark itself, whose
-    unfolded launches are counted; returns the per-mode results, the
-    launches and the microbenchmark's times."""
+    microbenchmark's shape, bit-identical on a second call, then the port's
+    microbenchmark itself, whose unfolded launches are counted; returns the
+    per-mode results, the launches and the microbenchmark's times."""
     from hupr_tpu_torch.ops import attention
     from hupr_tpu_torch.scripts.attn_microbench import run as microbench
     from hupr_tpu_torch.utils.device import float32_math
@@ -1045,14 +1049,16 @@ def microbench_phase(torch, peaks):
     for mode, ops in (("f32", False), ("f32_bf16ops", True)):
         with torch.inference_mode(), float32_math():
             got = attention.attention_fwd_unfolded(k, q, m, bf16_ops=ops)
+            again = attention.attention_fwd_unfolded(k, q, m, bf16_ops=ops)
             want = attention.attention_unfolded_plain(k, q, m, ops)
             ideal = attention.attention_unfolded_plain(*operand_values(
                 torch, (k, q, m), ops))
             torch.cuda.synchronize()
             row = {"max_abs_err": (got - want).abs().max().item(),
                    "rel_err_vs_twin": rel_err(got, want),
-                   "rel_err_vs_ideal": rel_err(got, ideal)}
-            del got, want, ideal
+                   "rel_err_vs_ideal": rel_err(got, ideal),
+                   "repeats_bit_for_bit": torch.equal(got, again)}
+            del got, again, want, ideal
             row["kernel_ms"] = cuda_ms(
                 torch, lambda: attention.attention_fwd_unfolded(
                     k, q, m, bf16_ops=ops), 10)
@@ -1066,9 +1072,15 @@ def microbench_phase(torch, peaks):
         rows[mode] = row
         if ops:
             check_bf16_rel(f"attention_fwd_unfolded {mode}", row)
-        elif not row["max_abs_err"] <= ATTN_TOL:
+        elif not (row["max_abs_err"] <= ATTN_TOL
+                  and row["rel_err_vs_twin"] <= REL_F32_FWD):
             raise AssertionError(f"attention_fwd_unfolded: max abs error "
-                                 f"{row['max_abs_err']} > {ATTN_TOL}")
+                                 f"{row['max_abs_err']} > {ATTN_TOL} or "
+                                 f"relative error {row['rel_err_vs_twin']} "
+                                 f"> {REL_F32_FWD}")
+        if not row["repeats_bit_for_bit"]:
+            raise AssertionError(f"attention_fwd_unfolded {mode}: two calls "
+                                 f"gave different bits")
     del k, q, m, kb, qb, mb
     attention.reset_launch_counts()
     times = microbench(b, n, c, inner=5, reps=2)
@@ -1258,12 +1270,17 @@ def main() -> int:
             f"attention_bwd_{mode}", mode, "attention_bwd", bwd_src,
             bwd_launches, [r["bwd_B20"] for r in mine], 4, per_step))
     micro_src = "scripts/attn_microbench.py:73"
-    for mode, suffix in (("f32", ""), ("f32_bf16ops", "_bf16ops")):
+    for mode, suffix, body in (
+            ("f32", "", "attention_fwd_unfolded_tf32 (3xTF32 on mma.sync, "
+                        "csrc/tf32.cuh; two passes)"),
+            ("f32_bf16ops", "_bf16ops", "attention_fwd_unfolded_tc (wgmma, "
+                                        "csrc/hopper.cuh; two passes)")):
         entries.append(kernel_entry(
             f"attention_fwd_unfolded{suffix}", mode, "attention_fwd_unfolded",
             micro_src, {"microbench": micro_launches.get(mode, 0)},
             [micro_rows[mode]], 1,
-            f"one call at (B, N, C) = {MICRO_SHAPE}"))
+            f"one call at (B, N, C) = {MICRO_SHAPE}", body=body,
+            rel_err=micro_rows[mode]["rel_err_vs_twin"]))
     print(f"card: {smi}", flush=True)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,5 @@
 // Unfolded forward MSCSA spatial attention for Hopper (sm_90a): the softmax
-// is normalized before the product with the values, float32 inputs and
-// output.
+// is normalized before the product with the values; float32 output.
 //
 //   a[b, i, j] = softmax_i(k[b, i, :] . q[b, j, :]),
 //   out[b, j, :] = sum_i a[b, i, j] * m[b, i, :]
@@ -9,280 +8,458 @@
 // fold=False (the round-1 forward body, kept there as the A/B baseline of
 // the production kernel, which folds the 1/s normalization into its
 // epilogue): logits, jax.nn.softmax over keys in the (N, qb) panel, then
-// a^T m. With `bf16_ops` (its mxu_bf16 flag) k, q and m are rounded to
-// bfloat16 on load and the NORMALIZED a is rounded to bfloat16 before the
-// product, a rounding point unlike the folded kernel's, whose unnormalized
-// p is rounded. Accumulation is float32 in both modes.
+// a^T m. In two modes:
+//   - f32 (attention_fwd_unfolded_tf32): float32 inputs, every product in
+//     3xTF32 on warp-level mma.sync m16n8k8 (tf32.cuh), float32's accuracy;
+//   - f32_bf16ops (attention_fwd_unfolded_tc, its mxu_bf16 flag): k, q and
+//     m bfloat16 (the wrapper rounds the float32 inputs once before the
+//     launch: the values the TPU body rounds on load), and the NORMALIZED a
+//     rounded to bfloat16 before the product, a rounding point unlike the
+//     folded kernel's, whose unnormalized p is rounded; wgmma (hopper.cuh).
+// Accumulation and output are float32 in both.
 //
 // The TPU body holds the whole (N, qb) panel of a query block; at N = 4096
 // that is 1 MB for 64 queries, far over a Hopper block's 227 KB. So each
-// block (one 64-query tile of one batch) makes two passes over the key
-// tiles and never writes an (N, N) array: the first takes each query's
-// running max and sum (its log-sum-exp); the second recomputes the logits,
-// forms a = exp(s - lse) and accumulates a.m.
+// block (64 queries of one batch) makes two passes over the key tiles and
+// never writes an (N, N) array: pass 1 streams K alone and takes each
+// query's running max and sum; pass 2 recomputes the logits in the same
+// order (so they repeat bit for bit and pass 1's max bounds them), forms
+// a = exp2f((s - max) log2 e) / sum, the plain version's order, and adds
+// each tile's a.m to the output. A one-pass online softmax would compute
+// the folded function (attention_fwd.cu under another name), and under
+// bf16_ops the rounding of a needs the final sum before any product. Both
+// passes run as one loop of 2 x tiles steps through one two-stage cp.async
+// ring: pass 2's first tiles are in flight while pass 1 ends.
 //
-// Bound: 4*B*N^2*C flops of products (6*B*N^2*C executed, the logits
-// computed in both passes) against 16*B*N*C bytes: bound by operations. It
-// runs FMAs on the float32 (non-tensor) pipes as attention_fwd.cu does, with
-// the same tiles and thread layout (tile rows padded so the column walks
-// read distinct banks). Only the microbenchmark and the smoke test call it;
-// the model's path runs the folded kernel.
+// Bound: the function needs 4*B*N^2*C flops (the logits and a.m) and
+// B*N^2 exps against 16*B*N*C bytes (the float32 inputs read, the output
+// written), so it is bound by operations. This body does three
+// products (the logits twice) and two sets of exps; the bound counts the
+// TPU body's two products and one set, the least work for the function.
+//
+// The f32 body takes attention_fwd_tf32's design (attention_fwd.cu says
+// why each part): four warps of 16 query rows, tile<C>() keys a tile, Q
+// staged once, K in tf32.cuh's swizzle and M in its pairs layout, the
+// logits summed SC columns at a time from zero and added in float32, a
+// kept in registers as A (frag_a_pairs, PairCols), each tile's a.m summed
+// apart 8 n-tiles of o at a time and added in float32. The f32_bf16ops
+// body takes attention_fwd_tc's: one warpgroup of 64 query rows, 64-key
+// tiles in the 128-byte swizzle, S by wgmma from shared memory, a rounded
+// once into register A operands (frags), M the MN-major operand; each
+// tile's a.m summed apart where the registers allow (promote_tiles).
+// Neither divides in its epilogue: a is final.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include <type_traits>
+#include "hopper.cuh"
+#include "tf32.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace hopper;
 
-constexpr int BQ = 64;      // queries per block
-constexpr int BK = 64;      // keys per shared-memory tile
-constexpr int NT = 256;     // threads per block
-constexpr int LANES = 16;   // threads sharing one query row (half a warp)
-constexpr int TM = BQ / (NT / LANES);  // query rows per thread (4)
+constexpr int BQ = 64;  // queries per block
 
-template <typename T>
-__device__ __forceinline__ T from_f32(float x) {
-  if constexpr (std::is_same_v<T, float>) {
-    return x;
-  } else {
-    return __float2bfloat16_rn(x);
-  }
-}
+// -------------------------------------------- f32: 3xTF32 on mma.sync
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+namespace f32 {
 
-__device__ __forceinline__ float round_bf16(float x) {
-  return __bfloat162float(__float2bfloat16_rn(x));
-}
+constexpr int NT = 128;  // threads per block: 4 warps, 16 query rows each
+constexpr int STAGES = 2;
 
-// K, Q and M tiles: float, or bfloat16 when rounded on load
-template <bool OPS>
-using TileT = std::conditional_t<OPS, bf16, float>;
+// Keys per tile, as attention_fwd.cu's f32::tile: 64 at C = 64 (80 KB of
+// shared memory a block), 32 at C = 128 (96 KB) and C = 256 (192 KB)
+template <int C>
+__host__ __device__ constexpr int tile() { return C == 64 ? 64 : 32; }
 
-template <bool OPS, int C>
-__host__ __device__ constexpr int row_stride() {
-  return C + (OPS ? 2 : 1);
-}
+// Columns of C a logits chunk, summed from zero and added in float32
+constexpr int SC = 32;
 
-template <int C, bool OPS>
+template <int C>
 constexpr size_t smem_bytes() {
-  constexpr size_t QS = row_stride<OPS, C>();
-  return sizeof(float) * size_t(BQ) * (BK + 1) +
-         sizeof(TileT<OPS>) *
-             (size_t(BQ) * QS + size_t(BK) * QS + size_t(BK) * C);
+  return 4 * (size_t(BQ) * C + size_t(STAGES) * 2 * tile<C>() * C);
 }
 
-// logits s[i][j] = q_(rg+16i) . k_(cg+16j) for this thread's rows and
-// columns of the staged tiles, -inf for keys at or beyond n
-template <int C, typename S>
-__device__ __forceinline__ void logits(float (&s)[TM][BK / LANES],
-                                       const S* qs, const S* ks, int rg,
-                                       int cg, int k0, int n) {
-  constexpr int TS = BK / LANES;
-  constexpr int QS = row_stride<!std::is_same_v<S, float>, C>();
+// S (16 x T) = Q.K^T of this warp's rows and the tile at ks, keys past n
+// masked to -inf. Both passes call it, so the logits repeat bit for bit.
+template <int C>
+__device__ __forceinline__ void logits(float (&s)[tile<C>() / 8][4],
+                                       const float* qs, const float* ks,
+                                       const tf32::Chunks<C>& rq,
+                                       const tf32::Chunks<C>& rk, int k0,
+                                       int n, int t) {
+  constexpr int NS = tile<C>() / 8;
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+  for (int j = 0; j < NS; ++j)
 #pragma unroll
-    for (int j = 0; j < TS; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-  for (int c = 0; c < C; ++c) {
-    float qv[TM], kv[TS];
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
 #pragma unroll
-    for (int i = 0; i < TM; ++i) qv[i] = to_f32(qs[(rg + 16 * i) * QS + c]);
+  for (int c0 = 0; c0 < C; c0 += SC) {
+    float part[NS][4] = {};
 #pragma unroll
-    for (int j = 0; j < TS; ++j) kv[j] = to_f32(ks[(cg + 16 * j) * QS + c]);
+    for (int c = c0; c < c0 + SC; c += 16) {
+      tf32::FragA a[2];
+      tf32::frags_a2(rq.load(qs, c), rq.load(qs + 8 * C, c), a);
+      tf32::FragB b[2][NS];
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+      for (int j = 0; j < NS; ++j)
+        tf32::frags_b2(rk.load(ks + 8 * j * C, c), b[0][j], b[1][j]);
+      tf32::mma3(part, a[0], b[0]);
+      tf32::mma3(part, a[1], b[1]);
+    }
 #pragma unroll
-      for (int j = 0; j < TS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    for (int j = 0; j < NS; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] += part[j][e];
   }
+  // key k0 is always in range, so every row's tile maximum is finite
+  if (k0 + tile<C>() > n) {
 #pragma unroll
-  for (int i = 0; i < TM; ++i)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-    for (int j = 0; j < TS; ++j)
-      if (k0 + cg + 16 * j >= n) s[i][j] = -INFINITY;
+      for (int e = 0; e < 4; ++e)
+        if (k0 + 8 * j + 2 * t + e % 2 >= n) s[j][e] = -INFINITY;
+  }
 }
 
-// Thread t owns query rows rg + 16*i (i < TM) and columns cg + 16*j, with
-// rg = t / 16 and cg = t % 16, as in attention_fwd.cu.
-template <int C, bool OPS>
+// Warp w owns query rows 16w .. 16w + 15 of the block's 64 (this thread
+// rows 16w + g and 16w + g + 8, keys 2t and 2t + 1 of each n-tile of S).
+// Steps 0 .. tiles-1 are pass 1 (K only), tiles .. 2 tiles-1 pass 2 (K and
+// M), one cp.async group each.
+template <int C>
 __global__ void __launch_bounds__(NT)
-attention_fwd_unfolded_kernel(const float* __restrict__ k,
-                              const float* __restrict__ q,
-                              const float* __restrict__ m,
-                              float* __restrict__ out, int n) {
-  using S = TileT<OPS>;
-  constexpr int TN = C / LANES;   // output columns per thread
-  constexpr int TS = BK / LANES;  // logit columns per thread
-  constexpr int QS = row_stride<OPS, C>();
-  constexpr int PS = BK + 1;
-
+attention_fwd_unfolded_tf32(const float* __restrict__ k,
+                            const float* __restrict__ q,
+                            const float* __restrict__ m,
+                            float* __restrict__ out, int n) {
+  constexpr int T = tile<C>(), TILE = T * C;
+  constexpr int NS = T / 8;  // n-tiles of S, k-steps of a.M
+  constexpr int NO = C / 8;  // n-tiles of o
+  constexpr int G = 8;       // n-tiles of o an a.M chain
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* ps = reinterpret_cast<float*>(smem_raw);   // BQ x PS
-  S* qs = reinterpret_cast<S*>(ps + BQ * PS);       // BQ x QS
-  S* ks = qs + BQ * QS;                             // BK x QS
-  S* ms = ks + BK * QS;                             // BK x C
+  float* qs = reinterpret_cast<float*>(smem_raw);
+  float* ring = qs + BQ * C;  // stage st: K at ring + 2*st*TILE, M next
 
-  const int tid = threadIdx.x;
-  const int cg = tid % LANES;
-  const int rg = tid / LANES;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
   const size_t base = size_t(blockIdx.y) * n * C;
   const int q0 = blockIdx.x * BQ;
+  const int tiles = (n + T - 1) / T, steps = 2 * tiles;
 
-  for (int e = tid; e < BQ * C; e += NT) {
-    const int r = e / C, c = e % C;
-    qs[r * QS + c] =
-        from_f32<S>((q0 + r < n) ? q[base + size_t(q0 + r) * C + c] : 0.f);
-  }
+  auto fill = [&](int i) {  // step i: K of its key tile, and M in pass 2
+    const int kt = i < tiles ? i : i - tiles;
+    float* ks = ring + 2 * (i % STAGES) * TILE;
+    const size_t at = base + size_t(kt) * TILE;
+    tf32::stage_tile<T, C, NT>(ks, k + at, n - kt * T, tid);
+    if (i >= tiles)
+      tf32::stage_tile<T, C, NT, true>(ks + TILE, m + at, n - kt * T, tid);
+  };
+  tf32::stage_tile<BQ, C, NT>(qs, q + base + size_t(q0) * C, n - q0, tid);
+  fill(0);
+  cp_async_commit();
+  fill(1);  // steps >= 2
+  cp_async_commit();
 
-  // pass 1: each row's max and sum over all keys -> its log-sum-exp
-  float row_max[TM], row_sum[TM];
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    row_max[i] = -INFINITY;
-    row_sum[i] = 0.f;
-  }
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tile is consumed (and Q is staged)
-    for (int e = tid; e < BK * C; e += NT) {
-      const int r = e / C, c = e % C;
-      ks[r * QS + c] =
-          from_f32<S>((k0 + r < n) ? k[base + size_t(k0 + r) * C + c] : 0.f);
-    }
+  const tf32::Chunks<C> rq(16 * warp + g, t), rk(g, t);
+  const tf32::PairCols<C> cols(lane);
+
+  // pass 1: this thread's rows 16w + g + 8h: running max, partial sums
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  for (int i = 0; i < tiles; ++i) {
+    const float* ks = ring + 2 * (i % STAGES) * TILE;
+    cp_async_wait<1>();  // step i has landed
     __syncthreads();
-    float s[TM][TS];
-    logits<C>(s, qs, ks, rg, cg, k0, n);
+    float s[NS][4];
+    logits<C>(s, qs, ks, rq, rk, i * T, n, t);
 #pragma unroll
-    for (int i = 0; i < TM; ++i) {
+    for (int h = 0; h < 2; ++h) {
       float tmax = -INFINITY;
 #pragma unroll
-      for (int j = 0; j < TS; ++j) tmax = fmaxf(tmax, s[i][j]);
+      for (int j = 0; j < NS; ++j)
+        tmax = fmaxf(tmax, fmaxf(s[j][2 * h], s[j][2 * h + 1]));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 1));
+      tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, 2));
+      const float nm = fmaxf(mx[h], tmax);
+      sum[h] *= exp2f((mx[h] - nm) * LOG2E);  // 0 on the first tile
+      mx[h] = nm;
 #pragma unroll
-      for (int off = LANES / 2; off > 0; off >>= 1)
-        tmax = fmaxf(tmax, __shfl_xor_sync(0xffffffffu, tmax, off));
-      // key k0 is in range, so tmax is finite
-      const float new_max = fmaxf(row_max[i], tmax);
-      float tsum = 0.f;
+      for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < TS; ++j) tsum += expf(s[i][j] - new_max);
-#pragma unroll
-      for (int off = LANES / 2; off > 0; off >>= 1)
-        tsum += __shfl_xor_sync(0xffffffffu, tsum, off);
-      row_sum[i] = row_sum[i] * expf(row_max[i] - new_max) + tsum;
-      row_max[i] = new_max;
+        for (int e = 2 * h; e < 2 * h + 2; ++e)
+          sum[h] += exp2f((s[j][e] - nm) * LOG2E);
     }
+    __syncthreads();  // every warp is done with this stage
+    if (i + STAGES < steps) fill(i + STAGES);
+    cp_async_commit();
   }
-  float lse[TM];
+  float inv[2];
 #pragma unroll
-  for (int i = 0; i < TM; ++i) lse[i] = row_max[i] + logf(row_sum[i]);
+  for (int h = 0; h < 2; ++h) {
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+    sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+    inv[h] = 1.f / sum[h];
+  }
 
-  // pass 2: a = exp(s - lse), normalized, then acc += a . M
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int t = 0; t < TN; ++t) acc[i][t] = 0.f;
-  for (int k0 = 0; k0 < n; k0 += BK) {
-    __syncthreads();  // the previous tiles and P are consumed
-    for (int e = tid; e < BK * C; e += NT) {
-      const int r = e / C, c = e % C;
-      const bool ok = k0 + r < n;
-      const size_t g = base + size_t(k0 + r) * C + c;
-      ks[r * QS + c] = from_f32<S>(ok ? k[g] : 0.f);
-      ms[r * C + c] = from_f32<S>(ok ? m[g] : 0.f);
-    }
+  // pass 2: a = exp2f((s - max) log2 e) / sum, then o += a.M, 8 n-tiles of
+  // o at a time, each summed over the tile apart
+  float o[NO][4] = {};
+  for (int i = tiles; i < steps; ++i) {
+    const float* ks = ring + 2 * (i % STAGES) * TILE;
+    const float* ms = ks + TILE;
+    cp_async_wait<1>();
     __syncthreads();
-    float s[TM][TS];
-    logits<C>(s, qs, ks, rg, cg, k0, n);
+    float s[NS][4];
+    logits<C>(s, qs, ks, rq, rk, (i - tiles) * T, n, t);
 #pragma unroll
-    for (int i = 0; i < TM; ++i)
+    for (int j = 0; j < NS; ++j)
 #pragma unroll
-      for (int j = 0; j < TS; ++j) {
-        const float a = expf(s[i][j] - lse[i]);
-        ps[(rg + 16 * i) * PS + cg + 16 * j] = OPS ? round_bf16(a) : a;
+      for (int e = 0; e < 4; ++e)
+        s[j][e] = exp2f((s[j][e] - mx[e / 2]) * LOG2E) * inv[e / 2];
+#pragma unroll
+    for (int j0 = 0; j0 < NO; j0 += G) {
+      float pm[G][4] = {};
+#pragma unroll
+      for (int st = 0; st < NS; ++st) {
+        const tf32::FragA a = tf32::frag_a_pairs(s[st]);
+        tf32::FragB b[G];
+#pragma unroll
+        for (int j = 0; j < G; ++j)
+          b[j] = cols.load(ms, 8 * st, 8 * (j0 + j));
+        tf32::mma3(pm, a, b);
       }
-    __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < BK; ++kk) {
-      float pv[TM], mv[TN];
 #pragma unroll
-      for (int i = 0; i < TM; ++i) pv[i] = ps[(rg + 16 * i) * PS + kk];
+      for (int j = 0; j < G; ++j)
 #pragma unroll
-      for (int t = 0; t < TN; ++t) mv[t] = to_f32(ms[kk * C + cg + 16 * t]);
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int t = 0; t < TN; ++t) acc[i][t] = fmaf(pv[i], mv[t], acc[i][t]);
+        for (int e = 0; e < 4; ++e) o[j0 + j][e] += pm[j][e];
     }
+    __syncthreads();
+    if (i + STAGES < steps) fill(i + STAGES);
+    cp_async_commit();
   }
 
 #pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int row = q0 + rg + 16 * i;
+  for (int h = 0; h < 2; ++h) {
+    const int row = q0 + 16 * warp + g + 8 * h;
     if (row >= n) continue;
+    float* dst = out + base + size_t(row) * C + 2 * t;
 #pragma unroll
-    for (int t = 0; t < TN; ++t)
-      out[base + size_t(row) * C + cg + 16 * t] = acc[i][t];
+    for (int j = 0; j < NO; ++j)
+      store2(dst + 8 * j, o[j][2 * h], o[j][2 * h + 1]);
   }
 }
 
-template <int C, bool OPS>
-cudaError_t launch(const float* k, const float* q, const float* m, float* out,
+template <int C>
+cudaError_t launch(const void* k, const void* q, const void* m, void* out,
                    int b, int n, cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<C, OPS>();
+  constexpr size_t smem = smem_bytes<C>();
   static_assert(smem <= 232448, "tile exceeds a Hopper block's shared memory");
-  // the shared-memory limit is an attribute of the kernel on each device:
-  // set it on a device's first launch only
-  constexpr int kMaxDevices = 64;
-  static bool configured[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  cudaError_t err = allow_smem<attention_fwd_unfolded_tf32<C>>(smem);
   if (err != cudaSuccess) return err;
-  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  if (!configured[dev]) {
-    err = cudaFuncSetAttribute(attention_fwd_unfolded_kernel<C, OPS>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               int(smem));
-    if (err != cudaSuccess) return err;
-    configured[dev] = true;
-  }
   const dim3 grid((n + BQ - 1) / BQ, b);
-  attention_fwd_unfolded_kernel<C, OPS><<<grid, NT, smem, stream>>>(
-      k, q, m, out, n);
+  attention_fwd_unfolded_tf32<C><<<grid, NT, smem, stream>>>(
+      static_cast<const float*>(k), static_cast<const float*>(q),
+      static_cast<const float*>(m), static_cast<float*>(out), n);
   return cudaGetLastError();
 }
 
-template <bool OPS>
-cudaError_t dispatch(const float* k, const float* q, const float* m,
-                     float* out, int b, int n, int c, cudaStream_t s) {
-  switch (c) {
-    case 64: return launch<64, OPS>(k, q, m, out, b, n, s);
-    case 128: return launch<128, OPS>(k, q, m, out, b, n, s);
-    case 256: return launch<256, OPS>(k, q, m, out, b, n, s);
-    default: return cudaErrorInvalidValue;
+}  // namespace f32
+
+// ------------------------------------- f32_bf16ops: wgmma, bf16 operands
+
+namespace tc {
+
+constexpr int NT = 128;  // one warpgroup
+constexpr int STAGES = 2;
+constexpr int BK = 64;   // keys per tile, wgmma's k-steps of a.M
+
+template <int C>
+constexpr size_t smem_bytes() {  // Q, then STAGES x (K, M), + alignment
+  return 1024 + size_t(BQ) * C * 2 + size_t(STAGES) * 2 * BK * C * 2;
+}
+
+// S (64 x BK) = Q.K^T by wgmma from the tiles at shared addresses qs, ks,
+// keys past n masked to -inf. Both passes call it.
+template <int C>
+__device__ __forceinline__ void logits(float (&s)[BK / 2], uint32_t qs,
+                                       uint32_t ks, int k0, int n,
+                                       int col0) {
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+  fence_regs(s);
+  wg_arrive();
+#pragma unroll
+  for (int c = 0; c < C / 16; ++c)
+    wgmma_ss_n64(s, desc_k<BQ>(qs, c), desc_k<BK>(ks, c), c > 0);
+  wg_commit();
+  wg_wait<0>();
+  fence_regs(s);
+  if (k0 + BK > n) {  // zero rows of K; key k0 is in range
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i)
+      if (k0 + 8 * (i / 4) + col0 + i % 2 >= n) s[i] = -INFINITY;
   }
+}
+
+// Thread t of the warpgroup (warp w, lane l) owns rows 16w + l/4 + 8r of
+// S and o (hopper.cuh, accumulators). Steps as in the f32 body.
+template <int C>
+__global__ void __launch_bounds__(NT, C == 64 ? 4 : 1)
+attention_fwd_unfolded_tc(const bf16* __restrict__ k,
+                          const bf16* __restrict__ q,
+                          const bf16* __restrict__ m,
+                          float* __restrict__ out, int n) {
+  constexpr int TILE = BK * C * 2;  // bytes of a Q, K or M tile
+  constexpr int PS = BK / 16;       // k-steps of a.M
+  static_assert(BK == 64, "mma_regs takes 64-row tiles");
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t qs = smem_base_1k(smem_raw);
+  const uint32_t ring = qs + TILE;  // stage st: K at ring + 2*st*TILE, M next
+
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const size_t base = size_t(blockIdx.y) * n * C;
+  const int q0 = blockIdx.x * BQ;
+  const int tiles = (n + BK - 1) / BK, steps = 2 * tiles;
+
+  auto fill = [&](int i) {  // step i: K of its key tile, and M in pass 2
+    const int kt = i < tiles ? i : i - tiles;
+    const uint32_t ks = ring + 2 * (i % STAGES) * TILE;
+    const size_t at = base + size_t(kt) * BK * C;
+    stage_tile<BK, C, NT>(ks, k + at, n - kt * BK, tid);
+    if (i >= tiles) stage_tile<BK, C, NT>(ks + TILE, m + at, n - kt * BK, tid);
+  };
+  stage_tile<BQ, C, NT>(qs, q + base + size_t(q0) * C, n - q0, tid);
+  fill(0);
+  cp_async_commit();
+  fill(1);  // steps >= 2
+  cp_async_commit();
+
+  const int col0 = 2 * (lane % 4);
+  // pass 1: this thread's rows: running max, partial sums
+  float mx[2] = {-INFINITY, -INFINITY}, sum[2] = {0.f, 0.f};
+  for (int i = 0; i < tiles; ++i) {
+    const uint32_t ks = ring + 2 * (i % STAGES) * TILE;
+    cp_async_wait<1>();  // step i has landed
+    fence_async_smem();
+    __syncthreads();
+    float s[BK / 2];
+    logits<C>(s, qs, ks, i * BK, n, col0);
+    float tmax[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j)
+      tmax[(j / 2) % 2] = fmaxf(tmax[(j / 2) % 2], s[j]);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 1));
+      tmax[r] = fmaxf(tmax[r], __shfl_xor_sync(0xffffffffu, tmax[r], 2));
+      const float nm = fmaxf(mx[r], tmax[r]);
+      sum[r] *= exp2f((mx[r] - nm) * LOG2E);  // 0 on the first tile
+      mx[r] = nm;
+    }
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      const int r = (j / 2) % 2;
+      sum[r] += exp2f((s[j] - mx[r]) * LOG2E);
+    }
+    __syncthreads();  // every warp is done with this stage
+    if (i + STAGES < steps) fill(i + STAGES);
+    cp_async_commit();
+  }
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 1);
+    sum[r] += __shfl_xor_sync(0xffffffffu, sum[r], 2);
+    inv[r] = 1.f / sum[r];
+  }
+
+  // pass 2: a = exp2f((s - max) log2 e) / sum rounded to bf16 once, then
+  // o += a.M
+  float o[C / 2];
+#pragma unroll
+  for (int j = 0; j < C / 2; ++j) o[j] = 0.f;
+  for (int i = tiles; i < steps; ++i) {
+    const uint32_t ks = ring + 2 * (i % STAGES) * TILE, ms = ks + TILE;
+    cp_async_wait<1>();
+    fence_async_smem();
+    __syncthreads();
+    float s[BK / 2];
+    logits<C>(s, qs, ks, (i - tiles) * BK, n, col0);
+#pragma unroll
+    for (int j = 0; j < BK / 2; ++j) {
+      const int r = (j / 2) % 2;
+      s[j] = exp2f((s[j] - mx[r]) * LOG2E) * inv[r];
+    }
+    uint32_t a[1][PS][4];
+    frags<BK, 1>(s, a);
+    if constexpr (promote_tiles<C>()) {  // o += this tile's a.M, in float32
+      float pm[C / 2];
+#pragma unroll
+      for (int j = 0; j < C / 2; ++j) pm[j] = 0.f;
+      mma_regs<C>(pm, a, ms);
+#pragma unroll
+      for (int j = 0; j < C / 2; ++j) o[j] += pm[j];
+    } else {
+      mma_regs<C>(o, a, ms);
+    }
+    __syncthreads();
+    if (i + STAGES < steps) fill(i + STAGES);
+    cp_async_commit();
+  }
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = q0 + 16 * warp + lane / 4 + 8 * r;
+    if (row >= n) continue;
+    float* dst = out + base + size_t(row) * C + col0;
+#pragma unroll
+    for (int j = 0; j < C / 8; ++j)
+      store2(dst + 8 * j, o[4 * j + 2 * r], o[4 * j + 2 * r + 1]);
+  }
+}
+
+template <int C>
+cudaError_t launch(const void* k, const void* q, const void* m, void* out,
+                   int b, int n, cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<C>();
+  static_assert(smem <= 232448, "tile exceeds a Hopper block's shared memory");
+  cudaError_t err = allow_smem<attention_fwd_unfolded_tc<C>>(smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((n + BQ - 1) / BQ, b);
+  attention_fwd_unfolded_tc<C><<<grid, NT, smem, stream>>>(
+      static_cast<const bf16*>(k), static_cast<const bf16*>(q),
+      static_cast<const bf16*>(m), static_cast<float*>(out), n);
+  return cudaGetLastError();
+}
+
+}  // namespace tc
+
+template <int C>
+cudaError_t launch(bool bf16_ops, const void* k, const void* q,
+                   const void* m, void* out, int b, int n, cudaStream_t s) {
+  return bf16_ops ? tc::launch<C>(k, q, m, out, b, n, s)
+                  : f32::launch<C>(k, q, m, out, b, n, s);
 }
 
 }  // namespace
 
-// Plain C entry point for ctypes, float32 tensors only (`in_bf16` must be
-// 0); `bf16_ops` selects the mxu_bf16 rounding. Returns a cudaError_t (0 on
-// success); allocates nothing and does not synchronize.
+// Plain C entry point for ctypes, the folded entry point's contract
+// (attention_fwd.cu) in modes f32 and f32_bf16ops: `in_bf16` must be 0;
+// with `bf16_ops` k, q and m are bfloat16 (the wrapper rounds the float32
+// inputs before the launch), else float32; out is float32. k, q and m sit
+// on 16-byte boundaries. Returns a cudaError_t (0 on success); allocates
+// nothing and does not synchronize.
 extern "C" int hupr_attention_fwd_unfolded(const void* k, const void* q,
                                            const void* m, void* out, int b,
                                            int n, int c, int in_bf16,
                                            int bf16_ops, void* stream) {
-  const float* kf = static_cast<const float*>(k);
-  const float* qf = static_cast<const float*>(q);
-  const float* mf = static_cast<const float*>(m);
-  float* of = static_cast<float*>(out);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (b <= 0 || n <= 0 || in_bf16) return int(cudaErrorInvalidValue);
-  return int(bf16_ops ? dispatch<true>(kf, qf, mf, of, b, n, c, s)
-                      : dispatch<false>(kf, qf, mf, of, b, n, c, s));
+  switch (c) {
+    case 64: return int(launch<64>(bf16_ops, k, q, m, out, b, n, s));
+    case 128: return int(launch<128>(bf16_ops, k, q, m, out, b, n, s));
+    case 256: return int(launch<256>(bf16_ops, k, q, m, out, b, n, s));
+    default: return int(cudaErrorInvalidValue);
+  }
 }

@@ -36,9 +36,16 @@ bfloat16 inputs. The LSE and the backward's D vector are float32 in every
 mode. Each mode has a plain twin with the same rounding points
 (`attention_plain`, `attention_bwd_plain`); mode bf16's kernels carry its
 float32 p and dS into the tensor cores as two bfloat16 terms, which keeps
-them within 2^-17 of those points. `attention_fwd_unfolded`
-(csrc/attention_fwd_unfolded.cu) replaces the microbenchmark's round-1
-Pallas body, scripts/attn_microbench.py:make_pallas(fold=False).
+them within 2^-17 of those points.
+
+`attention_fwd_unfolded` (csrc/attention_fwd_unfolded.cu) replaces the
+microbenchmark's round-1 Pallas body,
+scripts/attn_microbench.py:make_pallas(fold=False): the softmax normalized
+before the product, in modes f32 (3xTF32 on mma.sync) and f32_bf16ops
+(wgmma, bfloat16 operands, the normalized softmax rounded to bfloat16). It
+makes two passes over the key tiles, each row's max and sum, then the
+recomputed logits' normalized softmax times m: three products where the
+TPU body makes two, whose 4*B*N^2*C flops its bound counts.
 """
 
 from __future__ import annotations
@@ -299,15 +306,18 @@ def attention_fwd_unfolded(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
                            bf16_ops: bool = False) -> torch.Tensor:
     """The microbenchmark's unfolded forward (softmax normalized before the
     product), float32 inputs and output. CPU tensors take its plain twin;
-    CUDA tensors launch csrc/attention_fwd_unfolded.cu, or raise. Nothing
-    on the model's path calls it."""
+    CUDA tensors launch csrc/attention_fwd_unfolded.cu on operands aligned
+    to 16 bytes, rounded to bfloat16 under `bf16_ops` (_operand_tensors),
+    or raise. Nothing on the model's path calls it."""
     if _on_cpu(k, q, m):
         return attention_unfolded_plain(k, q, m, bf16_ops)
     _check("attention_fwd_unfolded", {"k": k, "q": q, "m": m}, m.shape,
            dtypes=(torch.float32,))
     b, n, c = m.shape
+    mode = kernel_mode(m.dtype, bf16_ops)
     out = torch.empty_like(m)
-    _launch(attention_fwd_unfolded, kernel_mode(m.dtype, bf16_ops),
+    k, q, m = _operand_tensors((k, q, m), mode)
+    _launch(attention_fwd_unfolded, mode,
             [t.data_ptr() for t in (k, q, m, out)], (b, n, c), _stream(m))
     return out
 

@@ -12,12 +12,19 @@ chains them, with CUDA events around the chain; per-op time is the best of
   plain                  attention_plain, float32 einsums (TF32 off)
   folded                 attention_fwd, the model's forward kernel, float32
   folded_bf16ops         the same with bfloat16 operands (pallas_bf16)
-  unfolded               attention_fwd_unfolded (softmax normalized first)
-  unfolded_bf16ops       the same with bfloat16 operands
+  unfolded               attention_fwd_unfolded (softmax normalized first),
+                         float32: 3xTF32 on mma.sync
+  unfolded_bf16ops       the same with bfloat16 operands and the normalized
+                         softmax rounded to bfloat16, on wgmma
   bwd_<mode>             attention_bwd in each mode, dm fed back as g
   library_sdpa           F.scaled_dot_product_attention(q, k, m, scale=1)
                          on (B, 1, N, C) views, the library yardstick
                          (float32)
+
+The unfolded kernel makes two passes over the key tiles (each row's max
+and sum, then the recomputed logits' normalized softmax times m): three
+products where the folded kernel makes two. Its bound in chip_smoke.py
+counts two, the least work for the function.
 
 Prints one line per variant. Runs on the card only.
 """

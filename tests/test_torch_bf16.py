@@ -1,8 +1,9 @@
 """The port's bfloat16 compute path (MODEL.computeDtype bfloat16 and
 MODEL.attention pallas_bf16) against hupr_tpu's on the same numpy inputs:
 the attention kernels' plain twins in each mode against the Pallas kernels
-run in interpret mode, the unfolded forward's twin against the
-microbenchmark's round-1 body, the dtypes at the model's boundaries, the
+run in interpret mode, the unfolded forward's twin and a model of its
+bf16_ops kernel's rounding points against the microbenchmark's round-1
+body, the dtypes at the model's boundaries, the
 whole bfloat16 forward, serving, and a 3-step bfloat16 train trajectory
 and an eval step, at reduced geometry (F=4, 16x16 maps).
 
@@ -24,7 +25,6 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from jax.experimental import pallas as pl
 
 import hupr_tpu.ops.attention as jax_attention
 import hupr_tpu_torch.engine.pipeline as port_pipeline
@@ -41,6 +41,7 @@ from hupr_tpu_torch.ops import attention
 from test_torch_models import _variables
 from test_torch_pipeline import (SMALL, _adc, _jax_from_cubes, _nets,
                                  _port_cubes)
+from test_torch_tf32 import LOG2E, _round1_pallas
 from test_torch_train import _batches
 
 torch.set_num_threads(2)
@@ -199,32 +200,6 @@ def test_bwd_twin_bar_sees_rounding(n, c, moved, bf16, bf16_ops):
                for a, w in zip(twin, moved_)) > TWIN_BWD_BAR
 
 
-def _round1_pallas(k, q, m, q_block, mxu_bf16):
-    """scripts/attn_microbench.py:make_pallas(fold=False), the round-1
-    forward body, in interpret mode (the script itself runs on a TPU)."""
-    b, n, c = k.shape
-
-    def kernel(k_ref, q_ref, m_ref, o_ref):
-        kk, qq, mm = k_ref[0], q_ref[0], m_ref[0]
-        if mxu_bf16:
-            kk, qq, mm = (x.astype(jnp.bfloat16) for x in (kk, qq, mm))
-        logits = jnp.dot(kk, qq.T, preferred_element_type=jnp.float32)
-        a = jax.nn.softmax(logits, axis=0)
-        if mxu_bf16:
-            a = a.astype(jnp.bfloat16)
-        o_ref[0] = jnp.dot(a.T, mm, preferred_element_type=jnp.float32
-                           ).astype(o_ref.dtype)
-
-    return pl.pallas_call(
-        kernel, grid=(b, pl.cdiv(n, q_block)),
-        in_specs=[pl.BlockSpec((1, n, c), lambda bi, qi: (bi, 0, 0)),
-                  pl.BlockSpec((1, q_block, c), lambda bi, qi: (bi, qi, 0)),
-                  pl.BlockSpec((1, n, c), lambda bi, qi: (bi, 0, 0))],
-        out_specs=pl.BlockSpec((1, q_block, c), lambda bi, qi: (bi, qi, 0)),
-        out_shape=jax.ShapeDtypeStruct((b, n, c), m.dtype),
-        interpret=True)(k, q, m)
-
-
 @pytest.mark.parametrize("bf16_ops", [False, True], ids=["f32", "bf16ops"])
 @pytest.mark.parametrize("n,c", [(256, 64), (128, 256)])
 def test_unfolded_twin_matches_round1_body(n, c, bf16_ops):
@@ -243,6 +218,50 @@ def test_unfolded_twin_matches_round1_body(n, c, bf16_ops):
             *ts[:3], bf16_ops=True))
     else:
         np.testing.assert_allclose(got.numpy(), want, atol=1e-4)
+
+
+def _unfolded_bf16ops(k, q, m):
+    """The unfolded forward's f32_bf16ops body (csrc/attention_fwd_unfolded
+    .cu) at its rounding points: k, q and m rounded to bfloat16, logits
+    summed in float32 over 64-key tiles; pass 1 each row's running max and
+    sum, pass 2 a = exp2((s - max) log2 e) / sum rounded to bfloat16 once,
+    each tile's a.m summed apart and added in float32."""
+    k, q, m = (t.to(torch.bfloat16).float() for t in (k, q, m))
+    b, n, _ = k.shape
+    mx = torch.full((b, n), -np.inf)
+    total = torch.zeros((b, n))
+    for k0 in range(0, n, 64):
+        s = torch.einsum("bjc,bic->bji", q, k[:, k0:k0 + 64])
+        new_max = torch.maximum(mx, s.amax(dim=2))
+        total = total * torch.exp2((mx - new_max) * LOG2E) \
+            + torch.exp2((s - new_max[..., None]) * LOG2E).sum(dim=2)
+        mx = new_max
+    inv = 1 / total
+    o = torch.zeros_like(q)
+    for k0 in range(0, n, 64):
+        s = torch.einsum("bjc,bic->bji", q, k[:, k0:k0 + 64])
+        a = torch.exp2((s - mx[..., None]) * LOG2E) * inv[..., None]
+        o = o + torch.einsum("bji,bic->bjc", a.to(torch.bfloat16).float(),
+                             m[:, k0:k0 + 64])
+    return o
+
+
+@pytest.mark.parametrize("n,c", [(256, 64), (128, 256)])
+def test_unfolded_bf16ops_model_matches_round1_body(n, c):
+    """The f32_bf16ops body's rounding points, modelled on the CPU, give
+    the round-1 body's mxu_bf16 output in interpret mode and the twin's
+    within 2^-7.5 (the same rounding points; a softmax summed in another
+    order may round a value the other way), and stay within 2^-8.5 of the
+    float32 ideal on the rounded operands."""
+    ts, js = _inputs(2, n, c, seed=c + 1, bf16=False)
+    got = _unfolded_bf16ops(*ts[:3])
+    want = np.asarray(_round1_pallas(*js[:3], 64, True))
+    assert _rel(got.numpy(), want) < JAX_BAR
+    twin = attention.attention_unfolded_plain(*ts[:3], bf16_ops=True)
+    assert _rel(got.numpy(), twin.numpy()) < JAX_BAR
+    ideal = attention.attention_unfolded_plain(
+        *(t.to(torch.bfloat16).float() for t in ts[:3]))
+    assert _rel(got.numpy(), ideal.numpy()) < IDEAL_BAR
 
 
 def test_kernel_wrappers_take_bf16_and_count_per_mode():

@@ -300,18 +300,24 @@ def test_attention_bwd_bf16_modes_match_twin(cuda, b, n, c, dtype, bf16_ops):
                                    (2, 256, 256), (2, 100, 64), (1, 1, 128),
                                    (2, 1000, 256)])
 def test_attention_fwd_unfolded_matches_twin(cuda, b, n, c, bf16_ops):
-    """The unfolded forward against its twin: float32 within 1e-4 (the
-    folded kernel's bar), bf16_ops within the relative bar."""
+    """The unfolded forward against its twin: float32 within 1e-4 and
+    chip_smoke.REL_F32_FWD (the folded forward's bars, which 3xTF32 keeps:
+    tests/test_torch_tf32.py models this kernel's arithmetic), bf16_ops
+    within the relative bar; two calls bit-identical in both modes."""
     k, q, m = _unit_spread(b, n, c, torch.float32, cuda, seed=n)
     before = attention_fwd_unfolded.launches
     got = attention_fwd_unfolded(k, q, m, bf16_ops=bf16_ops)
+    again = attention_fwd_unfolded(k, q, m, bf16_ops=bf16_ops)
     want = attention_unfolded_plain(k, q, m, bf16_ops)
     torch.cuda.synchronize()
-    assert attention_fwd_unfolded.launches == before + 1
+    assert attention_fwd_unfolded.launches == before + 2
+    assert torch.equal(got, again)
     if bf16_ops:
         _assert_rel(got, want, "out")
     else:
+        smoke = _chip_smoke()
         assert (got - want).abs().max().item() <= 1e-4
+        assert smoke.rel_err(got, want) <= smoke.REL_F32_FWD
 
 
 @pytest.mark.parametrize("compute,attn", [("bfloat16", "pallas"),

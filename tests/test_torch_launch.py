@@ -2,6 +2,7 @@
 chip_smoke.py charges a kernel against (its bound). CPU only: no kernel
 runs."""
 
+import ctypes
 import importlib.util
 import os
 
@@ -47,6 +48,51 @@ def test_tensor_core_modes_take_aligned_bf16(dtype, bf16_ops):
         assert torch.equal(got, want.to(torch.bfloat16))
     if dtype == torch.bfloat16:
         assert out[0] is aligned
+
+
+@pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "shifted"])
+@pytest.mark.parametrize("bf16_ops", [False, True],
+                         ids=["f32", "f32_bf16ops"])
+def test_unfolded_wrapper_hands_kernel_its_operands(monkeypatch, bf16_ops,
+                                                    offset):
+    """attention_fwd_unfolded hands its C function k, q and m on 16-byte
+    boundaries: in f32_bf16ops bfloat16, one cast each of the float32
+    inputs; in f32 the inputs themselves, copied only when one starts off a
+    boundary; and a float32 out, in both. The C function is replaced by a
+    recorder that reads the operands' bytes while the call lasts, and the
+    device checks and the stream are bypassed, on the CPU: no kernel
+    runs."""
+    calls = []
+    b, n, c = 2, 8, 64
+    size = b * n * c
+
+    def c_function(*args):
+        width = 2 if bf16_ops else 4
+        calls.append((args, [ctypes.string_at(p, size * width)
+                             for p in args[:3]]))
+        return 0
+
+    monkeypatch.setattr(attention, "_kernel", lambda name: c_function)
+    monkeypatch.setattr(attention, "_on_cpu", lambda *ts: False)
+    monkeypatch.setattr(attention, "_check", lambda *a, **kw: None)
+    monkeypatch.setattr(attention, "_stream", lambda t: None)
+    base = torch.randn(3 * size + 1)
+    k, q, m = (base[offset + i * size:offset + (i + 1) * size].view(b, n, c)
+               for i in range(3))
+    mode = attention.kernel_mode(torch.float32, bf16_ops)
+    before = attention.attention_fwd_unfolded.launches_by_mode.get(mode, 0)
+    out = attention.attention_fwd_unfolded(k, q, m, bf16_ops=bf16_ops)
+    (args, raw), = calls
+    assert args[4:] == (b, n, c, 0, int(bf16_ops), None)
+    assert out.dtype == torch.float32 and args[3] == out.data_ptr()
+    assert attention.attention_fwd_unfolded.launches_by_mode[mode] \
+        == before + 1
+    for ptr, data, t in zip(args[:3], raw, (k, q, m)):
+        want = t.to(torch.bfloat16) if bf16_ops else t
+        got = torch.frombuffer(bytearray(data), dtype=want.dtype)
+        assert ptr % 16 == 0
+        assert torch.equal(got.view(b, n, c), want)
+        assert (ptr == t.data_ptr()) == (not bf16_ops and offset == 0)
 
 
 @pytest.mark.parametrize("a,b,pipe,products", [

@@ -13,8 +13,11 @@ within the relative norm error the kernel is held to on the card
 version; one TF32 product (hi.hi alone) must miss it, so that the bar tells
 the two apart. The forward is modelled as the kernel runs it: key tiles
 with an online softmax, the logits summed in chunks of C and each tile's
-p.m apart. Once, at a small shape, each model is also tied to hupr_tpu's
-Pallas kernels in interpret mode.
+p.m apart; the unfolded forward (csrc/attention_fwd_unfolded.cu) as its f32
+body runs it: two passes over the same key tiles, the row statistics and
+then the normalized softmax times m. Once, at a small shape, each model is
+also tied to hupr_tpu's Pallas kernels (and the microbenchmark's round-1
+body) in interpret mode.
 """
 
 import functools
@@ -26,6 +29,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.experimental import pallas as pl
 
 import hupr_tpu.ops.attention as jax_attention
 from hupr_tpu_torch.ops import attention
@@ -33,16 +37,19 @@ from hupr_tpu_torch.ops import attention
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 1024, 128), (2, 256, 256)]
 NAMES = ("dk", "dq", "dm")
+LOG2E = 1.4426950408889634    # the kernels' exp2f((s - max) * LOG2E)
 
 
 # (kernel, b, n, c, logits): the backward's cases keep their ids; the
-# forward's run on logits of unit spread and on N(0, 1) inputs, as
-# chip_smoke.check_attention draws them (a nearly one-hot softmax)
+# forwards (folded and unfolded) run on logits of unit spread and on N(0, 1)
+# inputs, as chip_smoke.check_attention draws them (a nearly one-hot
+# softmax)
 CASES = [pytest.param("bwd", *shape, "unit", id="-".join(map(str, shape)))
          for shape in SHAPES] + [
-    pytest.param("fwd", *shape, logits, id="-".join(map(str, (
-        "fwd", logits) + shape)))
-    for logits in ("unit", "randn") for shape in SHAPES]
+    pytest.param(kernel, *shape, logits, id="-".join(map(str, (
+        kernel, logits) + shape)))
+    for kernel in ("fwd", "unfolded") for logits in ("unit", "randn")
+    for shape in SHAPES]
 
 
 @pytest.fixture(scope="module")
@@ -52,7 +59,8 @@ def bar():
         "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return {"bwd": module.REL_F32_BWD, "fwd": module.REL_F32_FWD}
+    return {"bwd": module.REL_F32_BWD, "fwd": module.REL_F32_FWD,
+            "unfolded": module.REL_F32_FWD}
 
 
 def _tf32(x):
@@ -103,6 +111,21 @@ TERMS = {"three": _three_terms, "one": _one_terms, "ideal": _einsum_terms}
 MMS = {"three": _three, "one": _one, "ideal": torch.einsum}
 
 
+def _tile(c):
+    """Keys a tile of the float32 forwards (f32::tile in their sources)."""
+    return 64 if c == 64 else 32
+
+
+def _logits(q, kt, terms):
+    """S (b, queries, keys) = q.kt^T of one key tile, as the float32
+    forwards take it: 32 columns of C at a time, each chunk's product
+    (as `terms`) added to the logits in float32."""
+    return functools.reduce(torch.add, (
+        functools.reduce(torch.add, terms("bjc,bic->bji", q[..., c0:c0 + 32],
+                                          kt[..., c0:c0 + 32]))
+        for c0 in range(0, q.shape[-1], 32)))
+
+
 def _fwd(k, q, m, terms):
     """The forward kernel's arithmetic, every product as `terms`: key tiles
     of 64 at C = 64 and 32 above (csrc/attention_fwd.cu, f32::tile) with an
@@ -110,17 +133,12 @@ def _fwd(k, q, m, terms):
     tile's p.m apart, each added to its running sum in float32. Returns
     (out, lse)."""
     b, n, c = k.shape
-    tile = 64 if c == 64 else 32
+    tile = _tile(c)
     o = torch.zeros_like(q)
     mx = torch.full((b, n), -np.inf, dtype=q.dtype)
     total = torch.zeros((b, n), dtype=q.dtype)
     for k0 in range(0, n, tile):
-        kt = k[:, k0:k0 + tile]
-        s = functools.reduce(torch.add, (
-            functools.reduce(torch.add, terms("bjc,bic->bji",
-                                              q[..., c0:c0 + 32],
-                                              kt[..., c0:c0 + 32]))
-            for c0 in range(0, c, 32)))
+        s = _logits(q, k[:, k0:k0 + tile], terms)
         new_max = torch.maximum(mx, s.amax(dim=2))
         alpha = torch.exp(mx - new_max)
         p = torch.exp(s - new_max[..., None])
@@ -130,6 +148,32 @@ def _fwd(k, q, m, terms):
                                                m[:, k0:k0 + tile]))
         o = o * alpha[..., None] + pm
     return o / total[..., None], mx + torch.log(total)
+
+
+def _unfolded(k, q, m, terms):
+    """The unfolded forward's f32 body (csrc/attention_fwd_unfolded.cu),
+    every product as `terms`: pass 1 takes each row's running max and sum
+    over _fwd's key tiles; pass 2 recomputes the same logits, forms
+    a = exp2((s - max) log2 e) / sum and adds each tile's a.m, summed
+    apart, to the output in float32."""
+    b, n, c = k.shape
+    tile = _tile(c)
+    mx = torch.full((b, n), -np.inf, dtype=q.dtype)
+    total = torch.zeros((b, n), dtype=q.dtype)
+    for k0 in range(0, n, tile):
+        s = _logits(q, k[:, k0:k0 + tile], terms)
+        new_max = torch.maximum(mx, s.amax(dim=2))
+        total = total * torch.exp2((mx - new_max) * LOG2E) \
+            + torch.exp2((s - new_max[..., None]) * LOG2E).sum(dim=2)
+        mx = new_max
+    inv = 1 / total
+    o = torch.zeros_like(q)
+    for k0 in range(0, n, tile):
+        s = _logits(q, k[:, k0:k0 + tile], terms)
+        a = torch.exp2((s - mx[..., None]) * LOG2E) * inv[..., None]
+        o = o + functools.reduce(torch.add, terms("bji,bic->bjc", a,
+                                                  m[:, k0:k0 + tile]))
+    return o
 
 
 def _bwd(k, q, m, out, lse, g, mm):
@@ -168,12 +212,16 @@ def _model(kernel, ts, products):
         ts = [t.double() for t in ts]
     if kernel == "fwd":
         return _fwd(*ts[:3], TERMS[products])[:1]
+    if kernel == "unfolded":
+        return (_unfolded(*ts[:3], TERMS[products]),)
     return _bwd(*ts, MMS[products])
 
 
 def _plain(kernel, ts):
     if kernel == "fwd":
         return (ts[3],)    # _inputs' out: attention_plain on the CPU
+    if kernel == "unfolded":
+        return (attention.attention_unfolded_plain(*ts[:3]),)
     return attention.attention_bwd_plain(*ts)
 
 
@@ -246,3 +294,40 @@ def test_model_matches_pallas_forward():
         *(jnp.asarray(t.numpy()) for t in (k, q, m)), 64, True, False)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
     torch.testing.assert_close(got_lse, lse, atol=1e-4, rtol=0)
+
+
+def _round1_pallas(k, q, m, q_block, mxu_bf16):
+    """scripts/attn_microbench.py:make_pallas(fold=False), the round-1
+    forward body, in interpret mode (the script itself runs on a TPU)."""
+    b, n, c = k.shape
+
+    def kernel(k_ref, q_ref, m_ref, o_ref):
+        kk, qq, mm = k_ref[0], q_ref[0], m_ref[0]
+        if mxu_bf16:
+            kk, qq, mm = (x.astype(jnp.bfloat16) for x in (kk, qq, mm))
+        logits = jnp.dot(kk, qq.T, preferred_element_type=jnp.float32)
+        a = jax.nn.softmax(logits, axis=0)
+        if mxu_bf16:
+            a = a.astype(jnp.bfloat16)
+        o_ref[0] = jnp.dot(a.T, mm, preferred_element_type=jnp.float32
+                           ).astype(o_ref.dtype)
+
+    return pl.pallas_call(
+        kernel, grid=(b, pl.cdiv(n, q_block)),
+        in_specs=[pl.BlockSpec((1, n, c), lambda bi, qi: (bi, 0, 0)),
+                  pl.BlockSpec((1, q_block, c), lambda bi, qi: (bi, qi, 0)),
+                  pl.BlockSpec((1, n, c), lambda bi, qi: (bi, 0, 0))],
+        out_specs=pl.BlockSpec((1, q_block, c), lambda bi, qi: (bi, qi, 0)),
+        out_shape=jax.ShapeDtypeStruct((b, n, c), m.dtype),
+        interpret=True)(k, q, m)
+
+
+def test_model_matches_round1_pallas_unfolded():
+    """At (1, 64, 16) the unfolded body's 3xTF32 model gives what the
+    microbenchmark's round-1 Pallas body gives in interpret mode, within
+    the bar of tests/test_attention.py (atol 1e-4)."""
+    k, q, m = _inputs(1, 64, 16, seed=7)[:3]
+    got = _unfolded(k, q, m, _three_terms)
+    want = _round1_pallas(*(jnp.asarray(t.numpy()) for t in (k, q, m)), 64,
+                          False)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-4)
