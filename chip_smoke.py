@@ -42,7 +42,15 @@
    after that kernel is held against its twin in both modes (float32 at
    ATTN_TOL and REL_F32_FWD, f32_bf16ops at the bf16 bars), bit-identical
    on a second call.
-10. Prints the `kernels` line (every kernel and mode), then ends with one
+10. The Runner (hupr_tpu_torch.main.run, the CLI's flow) on the flagship
+   recipe over one synthetic sequence of 64 full-size frames: two epochs of
+   training with sequence-mode val eval, through the kernels and through
+   the plain attention from the same checkpoint.pth, held together (losses,
+   weights, each leaf's update from the checkpoint); the kernel path's eval against the plain path's and sequence eval against
+   classic eval on the same weights; the resume from model_best.pth and
+   checkpoint.pth; the train loop's, the loader's and both eval paths'
+   rates, and a profile of one epoch's train loop.
+11. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -155,6 +163,18 @@ TRAIN_BARS = {"f32": {"loss_rtol": 2e-4, "stats": (7e-4, 1e-3),
 # bars (tests/test_bf16_compute.py)
 HEATMAP_TOL_VS_F32, DECODE_AGREE_VS_F32 = 0.05, 0.75
 MICRO_SHAPE = (32, 4096, 64)   # the JAX microbenchmark's default
+# the runner phase: one synthetic sequence of full-size frames
+# (bench.py's _bench_seq_eval duration), trained for two epochs
+RUNNER_FRAMES, RUNNER_EPOCHS = 64, 2
+# AP and its stats, kernel path vs plain path and sequence vs classic eval:
+# tests/test_golden_ap.py's protocol tier
+PROTOCOL_ATOL = 5e-3
+# Each leaf's update over the runner's train steps (final weights or BN
+# statistics less the seeded checkpoint's), kernel path vs plain path, in
+# L2 norm relative to the plain path's update. RUNNER_EPOCHS x 4 Adam steps
+# at lr 1e-4 move a weight by about 8e-4, at or below PARAM_ATOL + rtol, so
+# the weights bar alone would pass a leaf left untrained (it reads 1 here).
+RUNNER_UPDATE_RTOL = 5e-2
 
 # Peaks of each H100 variant at its full power limit, dense: float32
 # FMA-pipe, bfloat16 and TF32 tensor-core flop/s and the memory rate
@@ -1135,6 +1155,325 @@ def backward_passes(torch, reps: int = 3):
     return out
 
 
+def write_sequence(root: str, frames: int, spatial: int = 64,
+                   seed: int = 0) -> str:
+    """One synthetic sequence (single_1) of `frames` complex64 radar cubes
+    (16 chirps, spatial x spatial, 8 elevation bins) per view under
+    root/data, and its annotations for the train, val and test splits:
+    joints uniform in (40, 210) of a 256-pixel image, every GT box
+    1500x1500 as tests/test_golden_ap.py inflates them (OKS divides by the
+    gt area, and with the natural boxes a random model scores exactly 0).
+    Returns the data directory."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    data = os.path.join(root, "data")
+    blocks = []
+    for view in ("hori", "vert"):
+        os.makedirs(os.path.join(data, "single_1", view))
+    for f in range(frames):
+        for view in ("hori", "vert"):
+            cube = np.empty((16, spatial, spatial, 8), np.complex64)
+            cube.real = rng.standard_normal(cube.shape, np.float32)
+            cube.imag = rng.standard_normal(cube.shape, np.float32)
+            np.save(os.path.join(data, "single_1", view, f"{f:09d}.npy"),
+                    cube)
+        blocks.append({"image": f"{f:09d}.jpg",
+                       "joints": rng.uniform(40, 210, (14, 2)).tolist(),
+                       "bbox": [0.0, 0.0, 1500.0, 1500.0]})
+    for phase in ("train", "val", "test"):
+        with open(os.path.join(data, f"hrnet_annot_{phase}.json"), "w") as fp:
+            json.dump([blocks], fp)
+    return data
+
+
+def runner_config(data_dir: str, attention: str = "pallas"):
+    """config/mscsa_prgcn_tpu.yaml's recipe (flagship_training_config:
+    numFilters 32, 64x64 maps, 8-frame windows, train batch 20, test batch
+    32) over the one RUNNER_FRAMES-frame sequence of write_sequence, for
+    RUNNER_EPOCHS epochs."""
+    from hupr_tpu_torch.config import flagship_training_config
+
+    cfg = flagship_training_config()
+    cfg.MODEL.attention = attention
+    d = cfg.DATASET
+    d.dataDir, d.duration = data_dir, RUNNER_FRAMES
+    d.trainName = d.valName = d.testName = [1]
+    cfg.TRAINING.epochs = RUNNER_EPOCHS
+    return cfg
+
+
+def runner_args(dir_name: str, eval_mode: bool = False):
+    import argparse
+    return argparse.Namespace(seed=0, dir=dir_name, visDir="none",
+                              eval=eval_mode, sampling_ratio=1,
+                              keypoints=False)
+
+
+def seed_checkpoint(cfg, dir_name: str) -> None:
+    """./logs/<dir_name>/checkpoint.pth: seeded N(0, 0.03) weights (see
+    serve_slice), an optimizer that has taken no step, epoch 0."""
+    from hupr_tpu_torch.engine.checkpoint import snapshot, write_checkpoint
+    from hupr_tpu_torch.engine.steps import make_optimizer
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    model = build_model(cfg, device="cpu")
+    model.load_state_dict(synthetic_state_dict(model, seed=0, scale=0.03))
+    os.makedirs(os.path.join("logs", dir_name), exist_ok=True)
+    write_checkpoint(os.path.join("logs", dir_name, "checkpoint.pth"),
+                     snapshot(model, make_optimizer(cfg, model), 0, -1.0))
+
+
+def eval_outputs(runner):
+    """(maxvals (N, K, 1), pred2d (N, K, 2)) over the runner's eval split,
+    through its own eval path, the padded rows dropped."""
+    import numpy as np
+
+    maxvals, preds = [], []
+    for out, _, _, true_b in runner._eval_batches():
+        maxvals.append(out["maxvals"][:true_b].cpu().numpy())
+        preds.append(out["pred2d"][:true_b].cpu().numpy())
+    return np.concatenate(maxvals), np.concatenate(preds)
+
+
+def timed(torch, fn):
+    """(fn(), seconds) on the host clock, the card synchronized before and
+    after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def loader_rate(cfg) -> tuple:
+    """BatchLoader alone, as bench.py's _bench_loader measures it: batch 8,
+    numWorkers 4, a fresh dataset (cold FrameCache) per pass over warm
+    page cache, best of 3 after one pass that absorbs the cold page cache.
+    Returns (samples/s, whether the native loader served every pass)."""
+    from hupr_tpu_torch.data.dataset import BatchLoader, get_dataset
+
+    def one_pass():
+        ds = get_dataset("val", cfg, 1)
+        t0 = time.perf_counter()
+        n = sum(len(b["imageId"]) for b in BatchLoader(ds, 8, workers=4))
+        return n / (time.perf_counter() - t0), ds.use_native
+
+    rates = [one_pass() for _ in range(4)]
+    return max(r for r, _ in rates[1:]), all(native for _, native in rates)
+
+
+def runner_phase(torch, card: str):
+    """hupr_tpu_torch.main.run, the CLI's flow, on the flagship recipe over
+    one synthetic RUNNER_FRAMES-frame sequence: RUNNER_EPOCHS epochs of
+    training (64 windows: 3 full batches of 20 and a masked one of 4) with
+    sequence-mode val eval after each, from one seeded checkpoint.pth,
+    through the kernels and, from the same file, through the plain
+    attention (MODEL.attention xla). Holds the two runs together (per-step
+    losses, final weights and BN statistics, each leaf's update from the
+    checkpoint, val AP), the kernel path's eval against the plain path's
+    on the same weights (maxvals, AP), sequence eval against classic eval (maxvals, AP), and the resume
+    (model_best.pth's AP, checkpoint.pth's epoch and lr). Times an epoch
+    of the train loop, the loader alone and both eval paths, profiles one
+    epoch's train loop, and returns the results with the main run's
+    launches."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hupr_tpu_torch.engine.runner import Runner
+    from hupr_tpu_torch.main import run
+    from hupr_tpu_torch.ops import attention
+
+    root = tempfile.mkdtemp(prefix="hupr_runner_")
+    cwd = os.getcwd()
+    try:
+        t0 = time.perf_counter()
+        data = write_sequence(root, RUNNER_FRAMES)
+        setup_s = time.perf_counter() - t0
+        os.chdir(root)
+        cfgs = {name: runner_config(data, name) for name in ("pallas", "xla")}
+        for name, cfg in cfgs.items():
+            seed_checkpoint(cfg, name)
+        w0 = torch.load(os.path.join("logs", "pallas", "checkpoint.pth"),
+                        weights_only=True)["model_state_dict"]
+
+        def cli_run(name):
+            return run(runner_args(name), cfgs[name])
+
+        # the main path: the CLI's flow through the kernels
+        attention.reset_launch_counts()
+        trained, train_s = timed(torch, lambda: cli_run("pallas"))
+        launches = {"attention_fwd": attention.attention_fwd.launches,
+                    "attention_bwd": attention.attention_bwd.launches}
+        trained_x, train_s_x = timed(torch, lambda: cli_run("xla"))
+        if attention.attention_fwd.launches != launches["attention_fwd"] or \
+                attention.attention_bwd.launches != launches["attention_bwd"]:
+            raise AssertionError("the plain-attention run launched kernels")
+        t, b = cfgs["pallas"].TRAINING, cfgs["pallas"].TEST.batchSize
+        steps = RUNNER_EPOCHS * -(-RUNNER_FRAMES // t.batchSize)
+        evals = RUNNER_EPOCHS * -(-RUNNER_FRAMES // b)
+        want = {"attention_fwd": 12 * (steps + evals),
+                "attention_bwd": 12 * steps}
+        if launches != want:
+            raise AssertionError(f"the Runner launched {launches}, expected "
+                                 f"{want} ({steps} train steps, {evals} "
+                                 f"eval batches)")
+
+        losses = {}
+        for name in ("pallas", "xla"):
+            losses[name] = []
+            for e in range(RUNNER_EPOCHS):
+                with open(f"logs/{name}/train_loss_list_{e}.json") as fp:
+                    losses[name] += json.load(fp)
+        if len(losses["pallas"]) != steps or not all(
+                map(math.isfinite, losses["pallas"] + losses["xla"])):
+            raise AssertionError(f"train losses {losses}")
+        loss_rel = max(abs(a - c) / abs(c)
+                       for a, c in zip(losses["pallas"], losses["xla"]))
+        sd, sd_x = trained.model.state_dict(), trained_x.model.state_dict()
+        params = {k for k, _ in trained.model.named_parameters()}
+        param_excess, stats_excess, update_rel = [], [], {}
+        for key, v in sd.items():
+            if not v.is_floating_point():
+                continue
+            (param_excess if key in params else stats_excess).append(
+                allclose_excess(v, sd_x[key], PARAM_ATOL, PARAM_RTOL))
+            d = (v.cpu() - w0[key]).double()
+            d_x = (sd_x[key].cpu() - w0[key]).double()
+            update_rel[key] = ((d - d_x).norm() / d_x.norm()).item() \
+                if d_x.norm() > 0 else math.inf
+        param_excess, stats_excess = max(param_excess), max(stats_excess)
+        update_worst = max(update_rel, key=update_rel.get)
+        param_err = max((sd[k] - sd_x[k]).abs().max().item() for k in params)
+
+        # the train loop alone, as Runner.train runs it (loader, prefetch,
+        # step, deferred fetch), one epoch from the seed weights: eval and
+        # checkpoints stubbed out of this instance
+        def loop_runner(dir_name):
+            seed_checkpoint(cfgs["pallas"], dir_name)
+            r = Runner(runner_args(dir_name), cfgs["pallas"])
+            r.load_model_weight("checkpoint")
+            r.cfg.TRAINING.epochs = 1
+            r.eval = lambda **_: 0.0
+            r.save_model_weight = lambda *_: None
+            return r
+
+        looped = loop_runner("loop")
+        _, epoch_s = timed(torch, looped.train)
+        looped = loop_runner("profile")
+        profile(torch, "runner_epoch", looped.train, top=20)
+        del looped
+        cfgs["pallas"].TRAINING.epochs = RUNNER_EPOCHS
+
+        # eval on the best weights: kernel vs plain, sequence vs classic
+        def evaluator(name, sequence=True):
+            cfg = runner_config(data, name)
+            cfg.TEST.sequenceEval = sequence
+            r = Runner(runner_args("pallas", True), cfg)
+            r.load_model_weight("model_best")
+            return r
+
+        ev = {"seq": evaluator("pallas"), "xla": evaluator("xla"),
+              "classic": evaluator("pallas", sequence=False)}
+        outs = {k: eval_outputs(r) for k, r in ev.items()}
+        aps, eval_s = {}, {}
+        for k, r in ev.items():
+            r.eval(visualization=False)                 # warm-up
+            aps[k], eval_s[k] = timed(torch, lambda r=r: r.eval(
+                visualization=False))
+        maxval_err_x = float(np.abs(outs["seq"][0] - outs["xla"][0]).max())
+        maxval_err_c = float(np.abs(outs["seq"][0]
+                                    - outs["classic"][0]).max())
+        flips = int((outs["seq"][1] != outs["classic"][1]).any(-1).sum())
+        flips_x = int((outs["seq"][1] != outs["xla"][1]).any(-1).sum())
+        loader_sps, use_native = loader_rate(cfgs["pallas"])
+
+        # resume: the CLI's --eval from model_best.pth, and checkpoint.pth
+        # in train mode (the reference resumes at the saved epoch)
+        resumed = run(runner_args("pallas", True), cfgs["pallas"])
+        resumed_ap = resumed.test_set.evaluate(resumed.dir, verbose=False)
+        best_ap = trained.logger.show_best_ap()
+        back = Runner(runner_args("pallas"), cfgs["pallas"])
+        back.load_model_weight("checkpoint")
+
+        aps_by_epoch = {"pallas": trained.epoch_aps,
+                        "xla": trained_x.epoch_aps}
+        for name in ("pallas", "xla"):
+            with open(f"logs/{name}/val_results.json") as fp:
+                n_val = len(json.load(fp))
+            if n_val != RUNNER_FRAMES or \
+                    len(aps_by_epoch[name]) != RUNNER_EPOCHS:
+                raise AssertionError(f"{name}: {n_val} val keypoints, APs "
+                                     f"{aps_by_epoch[name]}")
+        # every dataset the phase read, the main path's first: a failed
+        # native load drops a dataset to the NumPy loader for good
+        use_native = use_native and all(
+            ds.use_native for ds in (
+                trained.train_set, trained.test_set, trained_x.train_set,
+                trained_x.test_set, resumed.test_set,
+                *(r.test_set for r in ev.values())))
+        result = {
+            "card": card, "frames": RUNNER_FRAMES, "epochs": RUNNER_EPOCHS,
+            "train_batch": t.batchSize, "test_batch": b,
+            "setup_s": setup_s, "cli_run_s": train_s, "cli_run_s_xla":
+                train_s_x,
+            "epoch_samples_per_sec": RUNNER_FRAMES / epoch_s,
+            "loader_samples_per_sec": loader_sps,
+            "seq_eval_frames_per_sec": RUNNER_FRAMES / eval_s["seq"],
+            "classic_eval_frames_per_sec": RUNNER_FRAMES / eval_s["classic"],
+            "seq_eval_frames_per_sec_xla": RUNNER_FRAMES / eval_s["xla"],
+            "use_native": use_native,
+            "launches": launches,
+            "losses": losses["pallas"], "losses_xla": losses["xla"],
+            "loss_max_rel_err_vs_xla": loss_rel,
+            "param_max_abs_err_vs_xla": param_err,
+            "param_allclose_excess": param_excess,
+            "bn_stats_allclose_excess": stats_excess,
+            "update_max_rel_err_vs_xla": update_rel[update_worst],
+            "update_worst_leaf": update_worst,
+            "val_ap_by_epoch": aps_by_epoch["pallas"],
+            "val_ap_by_epoch_xla": aps_by_epoch["xla"], "best_ap": best_ap,
+            "eval_ap": aps,
+            "maxvals_max_abs_err_vs_xla": maxval_err_x,
+            "maxvals_max_abs_err_seq_vs_classic": maxval_err_c,
+            "argmax_flips_seq_vs_classic": flips,
+            "argmax_flips_vs_xla": flips_x,
+            "resumed_eval_ap": resumed_ap,
+            "resume_start_epoch": back.start_epoch, "resume_lr": back.lr,
+            "trained_lr": trained.lr}
+        print(json.dumps({"runner": result}), flush=True)
+        bars = TRAIN_BARS["f32"]
+        checks = {
+            "use_native": use_native,
+            "losses vs xla": loss_rel <= bars["loss_rtol"],
+            "weights vs xla": param_excess <= 0,
+            "BN statistics vs xla": stats_excess <= 0,
+            "updates vs xla": update_rel[update_worst] <= RUNNER_UPDATE_RTOL,
+            "val APs vs xla": all(
+                abs(a - c) <= PROTOCOL_ATOL for a, c in
+                zip(aps_by_epoch["pallas"], aps_by_epoch["xla"])),
+            "eval maxvals vs xla": maxval_err_x <= MAXVAL_TOL,
+            "eval AP vs xla": abs(aps["seq"] - aps["xla"]) <= PROTOCOL_ATOL,
+            "seq maxvals vs classic": maxval_err_c <= MAXVAL_TOL,
+            "seq AP vs classic": abs(aps["seq"] - aps["classic"])
+                <= PROTOCOL_ATOL,
+            "AP not degenerate": 0.0 < aps["seq"] < 1.0,
+            "resumed eval AP": abs(resumed_ap - best_ap) <= PROTOCOL_ATOL,
+            "resume epoch": back.start_epoch == RUNNER_EPOCHS - 1,
+            "resume lr": back.lr == trained.lr,
+        }
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"runner checks failed: {failed}")
+        return result
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def kernel_entry(name, mode, source, replaces, launches, rows, scale, per,
                  **extra):
     """One object of the `kernels` line: times and bounds summed over
@@ -1221,6 +1560,7 @@ def main() -> int:
     ops_launches = pallas_bf16_phase(torch, requests, smi, outs_f32)
     del requests, outs_f32
     micro_rows, micro_launches, _ = microbench_phase(torch, peaks)
+    rr = runner_phase(torch, smi)
     backward_passes(torch)
 
     shapes = "4 at each (N, C) of (256, 256), (1024, 128), (4096, 64)"
@@ -1235,7 +1575,8 @@ def main() -> int:
     entries = [
         kernel_entry("attention_fwd", "f32", "attention_fwd", fwd_src,
                      {"serve": sl["attention_launches"],
-                      "train": tr["attention_fwd_launches"]}, rows, 4,
+                      "train": tr["attention_fwd_launches"],
+                      "runner": rr["launches"]["attention_fwd"]}, rows, 4,
                      per_request,
                      body="attention_fwd_tf32 (3xTF32 on mma.sync, "
                           "csrc/tf32.cuh)",
@@ -1244,7 +1585,8 @@ def main() -> int:
                                                      for r in bwd_rows)
                                         for key, name in lse_keys.items()}),
         kernel_entry("attention_bwd", "f32", "attention_bwd", bwd_src,
-                     {"serve": 0, "train": tr["attention_bwd_launches"]},
+                     {"serve": 0, "train": tr["attention_bwd_launches"],
+                      "runner": rr["launches"]["attention_bwd"]},
                      bwd_rows, 4, per_step,
                      body="attention_bwd_dq_tf32, attention_bwd_dkdm_tf32 "
                           "(3xTF32 on mma.sync, csrc/tf32.cuh)",

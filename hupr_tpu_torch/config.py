@@ -9,6 +9,7 @@ PyYAML is not installed.
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import os
 import warnings
@@ -42,6 +43,14 @@ class DatasetConfig:
         "L_Ankle", "Neck", "Head", "L_Shoulder", "L_Elbow",
         "L_Wrist", "R_Shoulder", "R_Elbow", "R_Wrist",
     ])
+
+    def split_names(self, phase: str) -> List[int]:
+        """The sequence ids of `phase` (the reference reads them with
+        eval('cfg.DATASET.' + phase + 'Name'))."""
+        if phase not in ("train", "val", "test"):
+            raise ValueError(f"Invalid phase: {phase}")
+        return {"train": self.trainName, "val": self.valName,
+                "test": self.testName}[phase]
 
     def radar_params(self):
         """RadarParams for the raw-ADC paths, validated against the cube
@@ -167,6 +176,38 @@ def load_config_dict(path: str, _seen=()) -> dict:
 
 def load_config(path: str) -> Config:
     return config_from_dict(load_config_dict(path))
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """The reference's 8 CLI flags (its main.py:17-30), with --gpuIDs a
+    plain string (the reference evaluates it, and only tests it for
+    truth)."""
+    p = argparse.ArgumentParser(description="HuPR on PyTorch and CUDA")
+    p.add_argument("--seed", type=int, default=0, metavar="S",
+                   help="random seed (default: 0)")
+    p.add_argument("--dir", type=str, default="test", metavar="B",
+                   help="directory of saving/loading")
+    p.add_argument("--visDir", type=str, default="none", metavar="B",
+                   help="directory of visualization")
+    p.add_argument("--config", type=str, default="mscsa_prgcn.yaml",
+                   metavar="B", help="config file name under ./config/")
+    p.add_argument("--gpuIDs", default="0", type=str,
+                   help="accepted for the reference CLI's sake (ignored: "
+                        "the port runs on one card)")
+    p.add_argument("--eval", action="store_true")
+    p.add_argument("-sr", "--sampling_ratio", type=int, default=1,
+                   help="sampling ratio for training/test (default: 1)")
+    p.add_argument("--keypoints", action="store_true",
+                   help="print out the APs of all keypoints")
+    return p
+
+
+def resolve_config_path(name: str) -> str:
+    """The reference loads './config/<name>'; a path that exists as given
+    is taken as it is."""
+    if os.path.exists(name):
+        return name
+    return os.path.join(".", "config", name)
 
 
 def flagship_serving_config() -> Config:

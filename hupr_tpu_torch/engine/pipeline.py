@@ -20,11 +20,15 @@ from hupr_tpu_torch.ops.normalize import normalize_radar_window
 from hupr_tpu_torch.utils.device import float32_math, resolve_device
 
 
-def replicate_pad(x: torch.Tensor, group: int) -> torch.Tensor:
-    """(F, ...) -> (F + G - 1, ...) with
-    padded[j] == x[clamp(j - G//2, 0, F-1)]."""
+def replicate_pad(x: torch.Tensor, group: int,
+                  pad_to: int | None = None) -> torch.Tensor:
+    """(F, ...) -> (pad_to + G - 1, ...) with
+    padded[j] == x[clamp(j - G//2, 0, F-1)]; pad_to defaults to F, and a
+    larger one extends the right edge (whole window batches at the end of
+    a sequence, whose extra windows the caller masks out)."""
     f = x.shape[0]
-    idx = torch.arange(f + group - 1, device=x.device) - group // 2
+    pad_to = f if pad_to is None else pad_to
+    idx = torch.arange(pad_to + group - 1, device=x.device) - group // 2
     return x[idx.clamp(0, f - 1)]
 
 

@@ -9,6 +9,7 @@ Skipped without a CUDA device. On a machine with one:
 """
 
 import importlib.util
+import math
 import os
 
 import pytest
@@ -418,3 +419,54 @@ def test_tensor_core_modes_take_unaligned_inputs(cuda, dtype, bf16_ops):
     torch.cuda.synchronize()
     for a, w in zip(got + grads[1], want + grads[0]):
         assert torch.equal(a, w)
+
+
+# ------------------------------------------------------------------ Runner
+
+def test_runner_epoch_on_card(cuda, tmp_path, monkeypatch):
+    """One epoch of the Runner at the kernels' widths (numFilters 32) on
+    32x32 maps, from a seeded checkpoint.pth over a 12-frame sequence
+    (train batch 8: one full step and one of 4 rows; test batch 8): 12
+    forward and 12 backward launches a step and 12 forward launches an
+    eval batch, finite losses, checkpoints written; then sequence and
+    classic eval of model_best.pth agree on AP within 5e-3 (the protocol
+    tier of tests/test_golden_ap.py)."""
+    import json
+
+    from hupr_tpu_torch.config import config_from_dict
+    from hupr_tpu_torch.engine.runner import Runner
+    from hupr_tpu_torch.ops import attention
+
+    smoke = _chip_smoke()
+    frames, h = 12, 32
+    data = smoke.write_sequence(str(tmp_path), frames, spatial=h)
+    cfg = config_from_dict({
+        "DATASET": {"duration": frames, "dataDir": data, "rangeSize": h,
+                    "azimuthSize": h, "heatmapSize": h, "imgSize": 4 * h,
+                    "trainName": [1], "valName": [1], "testName": [1]},
+        "MODEL": {"numFilters": 32, "attention": "pallas"},
+        "TRAINING": {"batchSize": 8, "epochs": 1},
+        "TEST": {"batchSize": 8}})
+    monkeypatch.chdir(tmp_path)
+    smoke.seed_checkpoint(cfg, "card")
+    args = smoke.runner_args("card")
+    runner = Runner(args, cfg)
+    runner.load_model_weight("checkpoint")
+    attention.reset_launch_counts()
+    runner.train()
+    torch.cuda.synchronize()
+    assert (attention.attention_fwd.launches,
+            attention.attention_bwd.launches) == (12 * 2 + 12 * 2, 12 * 2)
+    with open("logs/card/train_loss_list_0.json") as fp:
+        losses = json.load(fp)
+    assert len(losses) == 2 and all(map(math.isfinite, losses))
+    assert {"model_best.pth", "checkpoint.pth", "checkpoint_0.pth"} <= \
+        set(os.listdir("logs/card"))
+    aps = []
+    for sequence in (True, False):
+        cfg.TEST.sequenceEval = sequence
+        ev = Runner(smoke.runner_args("card", True), cfg)
+        ev.load_model_weight("model_best")
+        aps.append(ev.eval(visualization=False))
+    assert 0.0 < aps[0] < 1.0
+    assert abs(aps[0] - aps[1]) <= 5e-3

@@ -20,27 +20,43 @@ torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CONFIGS = sorted(glob.glob(os.path.join(REPO, "config", "*.yaml")))
 
+# what the port must not import, and what the card's machine lacks (torch
+# itself imports tqdm where it is installed): importing any of them raises
+# in the subprocess below
+BLOCKED = ("jax", "flax", "optax", "hupr_tpu", "yaml", "tqdm", "cv2", "PIL",
+           "ml_dtypes", "msgpack")
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
+BLOCKED = %r
+class Block:
+    def find_spec(self, name, path=None, target=None):
+        if name.split(".")[0] in BLOCKED:
+            raise ImportError("blocked: " + name)
+sys.meta_path.insert(0, Block())
 import hupr_tpu_torch
 for mod in pkgutil.walk_packages(hupr_tpu_torch.__path__, "hupr_tpu_torch."):
     importlib.import_module(mod.name)
 import chip_smoke
-bad = sorted(m for m in sys.modules
-             if m.split(".")[0] in ("jax", "flax", "optax", "hupr_tpu", "yaml"))
+bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", len([m for m in sys.modules if m.startswith("hupr_tpu_torch")]))
+print("MAIN", "hupr_tpu_torch.main" in sys.modules)
 print("BAD", bad)
-"""
+""" % (BLOCKED,)
 
 
 def test_port_imports_no_jax_no_reference_package():
+    """Every module of the port, its CLI (hupr_tpu_torch.main) among them,
+    and chip_smoke.py import with JAX, the JAX package, PyYAML, tqdm, cv2,
+    PIL, ml_dtypes and msgpack blocked."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    assert "MAIN True" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
-    assert loaded >= 15, out.stdout
+    assert loaded >= 30, out.stdout
 
 
 def test_port_sources_name_no_jax_or_reference_package():
@@ -122,3 +138,28 @@ def test_chip_smoke_fails_without_cuda():
                                            "CUDA_VISIBLE_DEVICES": ""})
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+@pytest.mark.parametrize("argv", [
+    [], ["--config", "mscsa_prgcn_tpu.yaml", "--dir", "x", "--eval"],
+    ["--seed", "3", "-sr", "2", "--keypoints", "--visDir", "v",
+     "--gpuIDs", "0,1"]])
+def test_arg_parser_equals_jax(argv):
+    """The CLI's 8 flags parse to the JAX package's values."""
+    want = vars(jax_config.build_arg_parser().parse_args(argv))
+    assert vars(port_config.build_arg_parser().parse_args(argv)) == want
+
+
+def test_resolve_config_path_and_split_names(tmp_path, monkeypatch):
+    monkeypatch.chdir(tmp_path)
+    (tmp_path / "here.yaml").write_text("{}")
+    for name in ("here.yaml", "mscsa_prgcn.yaml"):
+        assert port_config.resolve_config_path(name) == \
+            jax_config.resolve_config_path(name)
+    cfg = port_config.config_from_dict({"DATASET": {
+        "trainName": [1, 2], "valName": [3], "testName": [4]}})
+    jcfg = jax_config.config_from_dict({"DATASET": {
+        "trainName": [1, 2], "valName": [3], "testName": [4]}})
+    for phase in ("train", "val", "test"):
+        assert cfg.DATASET.split_names(phase) == \
+            jcfg.DATASET.split_names(phase)
