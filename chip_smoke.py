@@ -11,8 +11,9 @@
    spills.
 3. Holds each kernel against its plain PyTorch version at the shapes its
    path gives it (the forward at B=32 as served, the backward and the
-   forward's log-sum-exp at B=20 as trained), and times kernel, plain
-   version and the library call that computes the same function.
+   forward's log-sum-exp at B=20 as trained, the forward at B=1 as
+   streamed, in modes f32 and bf16), and times kernel, plain version and
+   the library call that computes the same function.
 4. Serves requests of 32 raw int16 ADC frames per radar view through
    make_e2e_infer at the flagship width (config/mscsa_prgcn_tpu.yaml:
    numFilters 32, 64x64 maps, 8-frame windows, MODEL.attention pallas),
@@ -50,7 +51,25 @@
    classic eval on the same weights; the resume from model_best.pth and
    checkpoint.pth; the train loop's, the loader's and both eval paths'
    rates, and a profile of one epoch's train loop.
-11. Prints the `kernels` line (every kernel and mode), then ends with one
+11. Streaming (engine/streaming.StreamingPoseEstimator), run before any
+   profiler, in the flagship (float32) and fast (bfloat16) configs: one
+   sequence of 32 raw int16 frames per view through the CUDA graph step,
+   held against make_e2e_infer on the same frames (the lag and the flush
+   applied) and against the eager step; stream_latency_ms of the graph and
+   the eager step as bench.py times it. Near the end, under the profiler:
+   a frame of each (the host's launch calls, the card's kernels) and the
+   sequence again, where the card's trace must show the 12 forward
+   attention kernels in every replayed frame (a replay calls no wrapper,
+   so the wrappers count only the eager steps and the capture).
+12. The fast recipe's Runner (fast_training_config(): chunk-mode training
+   from raw ADC, raw-ADC sequence eval, bfloat16) through main.run over
+   one synthetic sequence of 64 raw captures: two epochs with no fallback
+   notice, 12 forward and 12 backward launches a step; in float32 from the
+   same weights, the raw-ADC chunk step against the cube chunk step and
+   the chunk step against the classic step on the same windows, and three
+   planted faults the first hold must catch; the chunk-mode epoch's rate
+   (median of 8 epochs after a warm-up one) and raw-ADC eval's.
+13. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -63,6 +82,7 @@ import json
 import math
 import os
 import re
+import statistics
 import subprocess
 import sys
 import time
@@ -175,6 +195,17 @@ PROTOCOL_ATOL = 5e-3
 # at lr 1e-4 move a weight by about 8e-4, at or below PARAM_ATOL + rtol, so
 # the weights bar alone would pass a leaf left untrained (it reads 1 here).
 RUNNER_UPDATE_RTOL = 5e-2
+# runner_fast's chunk-mode epochs timed one by one after a warm-up epoch
+FAST_TIMED_EPOCHS = 8
+
+# the stream phase: one sequence of raw frames per view (bench.py's
+# request), then stream_latency_ms as bench.py times it (3 warm-up frames,
+# 20 timed)
+STREAM_FRAMES, STREAM_WARM, STREAM_TIMED = 32, 3, 20
+# keypoints decoded to the same bin as make_e2e_infer's on the same frames:
+# the stream runs each window at B=1, the batch path at B=32, so the card's
+# sums run in other orders and a near-tied argmax may flip
+STREAM_AGREE = {"f32": 0.99, "bf16": 0.95}
 
 # Peaks of each H100 variant at its full power limit, dense: float32
 # FMA-pipe, bfloat16 and TF32 tensor-core flop/s and the memory rate
@@ -731,6 +762,20 @@ def kernel_times(torch, prof):
     return sorted(kernels, key=lambda x: -x[1])
 
 
+def device_busy_ms(torch, prof) -> float:
+    """The time the device was busy in a torch.profiler run: the union of
+    its events' spans, so that work that overlaps on two streams counts
+    once."""
+    busy_us, reach = 0.0, float("-inf")
+    for start, end in sorted(
+            (e.time_range.start, e.time_range.end) for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA):
+        if end > reach:
+            busy_us += end - max(start, reach)
+            reach = end
+    return busy_us / 1e3
+
+
 def profile(torch, path: str, fn, top: int = 12):
     """One call of fn under torch.profiler: device time by kernel, the time
     the device was busy (the union of its events' spans, so that work that
@@ -738,7 +783,6 @@ def profile(torch, path: str, fn, top: int = 12):
     the call's wall time."""
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    cuda = torch.autograd.DeviceType.CUDA
     torch.cuda.synchronize()
     with torch_profile(activities=[ProfilerActivity.CPU,
                                    ProfilerActivity.CUDA]) as prof:
@@ -747,13 +791,7 @@ def profile(torch, path: str, fn, top: int = 12):
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     kernels = kernel_times(torch, prof)
-    busy_us, reach = 0.0, float("-inf")
-    for start, end in sorted((e.time_range.start, e.time_range.end)
-                             for e in prof.events() if e.device_type == cuda):
-        if end > reach:
-            busy_us += end - max(start, reach)
-            reach = end
-    busy_ms = busy_us / 1e3
+    busy_ms = device_busy_ms(torch, prof)
     out = {"path": path, "wall_ms": wall_ms, "device_busy_ms": busy_ms,
            "kernel_ms_total": sum(ms for _, ms, _ in kernels),
            "idle_share": (1 - busy_ms / wall_ms) if kernels else None,
@@ -1474,6 +1512,606 @@ def runner_phase(torch, card: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def check_attention_b1(torch, peaks):
+    """The forward kernel at B=1, as the stream launches it (one window a
+    frame), at the three path shapes, in modes f32 (against the plain
+    version at ATTN_TOL and REL_F32_FWD, as check_attention) and bf16
+    (against its twin at REL_TWIN and the float32 ideal at REL_IDEAL, on
+    DRAWS inputs, as check_attention_modes); timed beside the plain version
+    and SDPA in the same dtype. Returns per-(mode, shape) results."""
+    from hupr_tpu_torch.ops.attention import attention_fwd, attention_plain
+    from hupr_tpu_torch.utils.device import float32_math
+
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    rows = []
+    for mode in ("f32", "bf16"):
+        for n, c in ATTN_SHAPES:
+            draws = []
+            for _ in range(1 if mode == "f32" else DRAWS):
+                if mode == "f32":
+                    k, q, m = (torch.randn((1, n, c), generator=gen,
+                                           device="cuda") for _ in range(3))
+                else:
+                    k, q, m = unit_spread(torch, gen, (1, n, c),
+                                          torch.bfloat16, 3)
+                with torch.inference_mode(), float32_math():
+                    got = attention_fwd(k, q, m)
+                    want = attention_plain(k, q, m)
+                    ideal = attention_plain(*(t.float() for t in (k, q, m)))
+                    draws.append({"max_abs_err": (got.float() - want.float())
+                                  .abs().max().item(),
+                                  "rel_err_vs_twin": rel_err(got, want),
+                                  "rel_err_vs_ideal": rel_err(got, ideal)})
+            row = worst_of(draws)
+            with torch.inference_mode(), float32_math():
+                row["kernel_ms"] = cuda_ms(torch, lambda: attention_fwd(
+                    k, q, m), 20)
+                row["plain_ms"] = cuda_ms(torch, lambda: attention_plain(
+                    k, q, m), 10)
+                row["library_ms"] = cuda_ms(torch, lambda: sdpa(q, k, m), 20)
+            row["bound_ms"], row["bound_by"] = attention_bound(
+                "fwd", 1, n, c, mode, peaks)
+            row.update(kernel="attention_fwd", mode=mode, B=1, N=n, C=c)
+            print(json.dumps(row), flush=True)
+            del k, q, m, got, want, ideal
+            if mode == "f32" and not (row["max_abs_err"] <= ATTN_TOL and
+                                      row["rel_err_vs_twin"] <= REL_F32_FWD):
+                raise AssertionError(f"attention_fwd f32 B=1 N={n} C={c}: "
+                                     f"{row}")
+            if mode == "bf16":
+                check_bf16_rel(f"attention_fwd bf16 B=1 N={n} C={c}", row)
+            rows.append(row)
+    return rows
+
+
+def stream_sequence(est, frames):
+    """Every pose of one sequence through a StreamingPoseEstimator, in
+    frame order: the first latency_frames outputs dropped and the flush
+    appended (the consumer rule of its flush). Returns (pred2d (F, K, 2),
+    maxvals (F, K, 1)) numpy arrays."""
+    import numpy as np
+
+    out = []
+    hr, hi, vr, vi = frames
+    for t in range(hr.shape[0]):
+        got = est.process_frame((hr[t], hi[t]), (vr[t], vi[t]))
+        if t >= est.latency_frames:
+            out.append(got)
+    out += est.flush()
+    return (np.stack([p for p, _ in out]), np.stack([m for _, m in out]))
+
+
+def wrapper_launches(attention) -> dict:
+    """{wrapper name: {mode: launches}}, a copy of every kernel wrapper's
+    counts."""
+    return {fn.__name__: dict(fn.launches_by_mode)
+            for fn in (attention.attention_fwd, attention.attention_bwd,
+                       attention.attention_fwd_unfolded)}
+
+
+# the forward attention kernels' names in the card's trace: the float32
+# body and the bfloat16 modes' wgmma body (not the unfolded forward's)
+ATTN_FWD_TRACE = ("::attention_fwd_tf32<", "::attention_fwd_tc<")
+
+
+def frame_launches(torch, step) -> dict:
+    """One call of step under torch.profiler: the runtime's kernel and
+    graph launch calls on the host, the kernels the card ran and how many
+    of them were the forward attention kernel, the wall time and the time
+    the card was busy."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step()
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = prof.events()
+    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    return {"host_launch_calls_per_frame": sum(
+                1 for e in events if "Launch" in e.name
+                and e.device_type == cpu),
+            "device_kernels_per_frame": sum(
+                1 for e in events if e.device_type == cuda
+                and not e.name.startswith(("Memcpy", "Memset"))),
+            "attention_fwd_kernels": sum(
+                1 for e in events if e.device_type == cuda
+                and any(n in e.name for n in ATTN_FWD_TRACE)),
+            "wall_ms": wall_ms, "device_busy_ms": device_busy_ms(torch, prof)}
+
+
+def stream_phase(torch, card: str):
+    """StreamingPoseEstimator in the flagship config (float32) and the fast
+    config (bfloat16), at full width with the slices' synthetic weights:
+    one sequence of STREAM_FRAMES raw int16 frames per view through the
+    CUDA graph step, with the kernel counts zeroed just before and read
+    just after, held against make_e2e_infer on the same frames (the lag
+    and the flush applied) and against the eager step; then
+    stream_latency_ms as bench.py measures it (inputs on the card, STREAM
+    warm-up frames, the packed fetch included) for the graph and the eager
+    step. The wrappers count the eager steps (the first frame, the flush,
+    the capture's warm-up step) and the capture, never a replay: the
+    kernels the replays ran are counted from the card's trace, late
+    (stream_launches). Returns the results by dtype and, for
+    stream_launches, what it profiles: one more frame of each timed
+    estimator and the main path's sequence again."""
+    import numpy as np
+
+    from hupr_tpu_torch.config import (fast_serving_config,
+                                       flagship_serving_config)
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.engine.streaming import StreamingPoseEstimator
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    frames = [torch.randint(-300, 300, (STREAM_FRAMES, 4, 192, 256),
+                            generator=gen, device="cuda", dtype=torch.int16)
+              for _ in range(4)]
+    out, later = {}, {}
+    for dtype, make_cfg, mode, maxval_tol, agree_bar in (
+            ("float32", flagship_serving_config, "f32", MAXVAL_TOL,
+             STREAM_AGREE["f32"]),
+            ("bfloat16", fast_serving_config, "bf16", MAXVAL_TOL_BF16,
+             STREAM_AGREE["bf16"])):
+        cfg = make_cfg()
+        ds = cfg.DATASET
+        model = build_model(cfg)
+        model.load_state_dict(synthetic_state_dict(model, seed=0,
+                                                   scale=0.03))
+        rp = ds.radar_params()
+        want_pred, want_maxv = (t.cpu().numpy() for t in make_e2e_infer(
+            model, None, rp, duration=STREAM_FRAMES, group=ds.numGroupFrames,
+            num_frames=ds.numFrames)(*frames))
+
+        def estimator(graph):
+            return StreamingPoseEstimator(model, None, rp, ds.numGroupFrames,
+                                          ds.numFrames, cuda_graph=graph)
+
+        # the main path: one sequence through the graph step
+        est = estimator(True)
+        attention.reset_launch_counts()
+        pred, maxv = stream_sequence(est, frames)
+        torch.cuda.synchronize()
+        launches = wrapper_launches(attention)["attention_fwd"]
+        pred_e, maxv_e = stream_sequence(estimator(False), frames)
+        lag = est.latency_frames
+        # the eager first frame, the capture's warm-up step, the capture
+        # and the flushed frames
+        want_launches = {mode: 12 * (3 + lag)}
+
+        timing = {}
+        frame = ((frames[0][0], frames[1][0]), (frames[2][0], frames[3][0]))
+        for name, graph in (("graph", True), ("eager", False)):
+            est = estimator(graph)
+            for _ in range(STREAM_WARM):
+                est.process_frame(*frame)
+            attention.reset_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(STREAM_TIMED):
+                est.process_frame(*frame)
+            ms = 1e3 * (time.perf_counter() - t0) / STREAM_TIMED
+            per_frame = {m: n / STREAM_TIMED for m, n in
+                         attention.attention_fwd.launches_by_mode.items()}
+            timing[name] = {"stream_latency_ms": ms,
+                            "wrapper_launches_per_frame": per_frame}
+            # profiled after every other timing (see backward_passes)
+            later[f"{mode} {name}"] = \
+                lambda est=est, frame=frame: est.process_frame(*frame)
+        later[f"{mode} sequence"] = \
+            lambda est=estimator(True): stream_sequence(est, frames)
+        agree = float((pred == want_pred).all(-1).mean())
+        result = {
+            "card": card, "compute_dtype": dtype, "frames": STREAM_FRAMES,
+            "latency_frames": lag,
+            "stream_latency_ms": timing["graph"]["stream_latency_ms"],
+            "stream_latency_ms_eager": timing["eager"]["stream_latency_ms"],
+            "timing": timing, "sequence_wrapper_launches": launches,
+            "maxvals_max_abs_err_vs_e2e": float(np.abs(maxv - want_maxv)
+                                                .max()),
+            "keypoint_agreement_vs_e2e": agree,
+            "maxvals_max_abs_err_graph_vs_eager": float(
+                np.abs(maxv - maxv_e).max()),
+            "keypoints_graph_equal_eager": bool((pred == pred_e).all())}
+        checks = {
+            "launches": launches == want_launches,
+            # a replay calls no wrapper; an eager step launches 12
+            "per-frame wrapper launches":
+                timing["graph"]["wrapper_launches_per_frame"] == {}
+                and timing["eager"]["wrapper_launches_per_frame"]
+                == {mode: 12.0},
+            "shapes": pred.shape == want_pred.shape
+            and maxv.shape == want_maxv.shape,
+            "finite": bool(np.isfinite(maxv).all()),
+            "peaks spread": 1e-3 < float(maxv.std()) and maxv.max() < 1.0,
+            "maxvals vs e2e": result["maxvals_max_abs_err_vs_e2e"]
+            <= maxval_tol,
+            "keypoints vs e2e": agree >= agree_bar,
+            "graph vs eager maxvals":
+                result["maxvals_max_abs_err_graph_vs_eager"] <= 1e-5,
+            "graph vs eager keypoints":
+                result["keypoints_graph_equal_eager"]}
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"stream {dtype} checks failed: {failed}: "
+                                 f"{result}")
+        out[mode] = result
+        del model
+    return out, later
+
+
+def stream_launches(torch, results: dict, frames: dict):
+    """Under torch.profiler, what stream_phase left to profile: one frame
+    of each timed estimator (the host's launch calls, the card's kernels
+    and its busy time) and the main path's sequence again through a new
+    graph estimator. Checks from the card's trace that a replayed frame
+    ran the 12 forward attention kernels, as an eager frame does, and that
+    the sequence ran 12 a frame, 12 a flushed frame and 12 for the
+    capture's warm-up step; adds these counts to stream_phase's `results`
+    and prints them as the `stream` lines, then the `stream_launches`
+    line."""
+    out = {name: frame_launches(torch, step) for name, step in frames.items()}
+    for mode, result in results.items():
+        frame = {name: out[f"{mode} {name}"]["attention_fwd_kernels"]
+                 for name in ("graph", "eager")}
+        sequence = out.pop(f"{mode} sequence")["attention_fwd_kernels"]
+        result["traced_attention_fwd_kernels"] = {
+            "per_replayed_frame": frame["graph"],
+            "per_eager_frame": frame["eager"], "sequence": sequence}
+        print(json.dumps({"stream": result}), flush=True)
+        lag = result["latency_frames"]
+        if not (frame == {"graph": 12, "eager": 12}
+                and sequence == 12 * (STREAM_FRAMES + lag + 1)):
+            raise AssertionError(
+                f"stream {mode}: traced forward attention kernels "
+                f"{result['traced_attention_fwd_kernels']}")
+    print(json.dumps({"stream_launches": out}), flush=True)
+    return out
+
+
+def write_adc_sequence(torch, root: str, frames: int, seed: int = 0) -> str:
+    """One synthetic sequence (single_1) of `frames` raw frames per view as
+    DCA1000 captures (root/raw/single_1/{hori,vert}/adc_data.bin, int16
+    uniform in [-300, 300), drawn on the card from a seed), the .npy cubes
+    the port's DSP makes from them (root/data, complex64) with the
+    Doppler-0 plane set to its exact value, zero (ROADMAP C, "Doppler-0
+    residue": the cube-fed path is then held to the raw-ADC path with that
+    plane pinned there too), and annotations as write_sequence writes
+    them. Returns the capture root."""
+    import numpy as np
+
+    from hupr_tpu_torch.ops.dsp import (RadarParams, decode_dca1000,
+                                        radar_cube_single_frame)
+
+    rp = RadarParams()
+    s = 2 * rp.num_rx * rp.num_chirp * rp.num_adc_samples
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    data, raw = os.path.join(root, "data"), os.path.join(root, "raw")
+    for view in ("hori", "vert"):
+        os.makedirs(os.path.join(raw, "single_1", view))
+        os.makedirs(os.path.join(data, "single_1", view))
+        stream = torch.randint(-300, 300, (frames, s), generator=gen,
+                               device="cuda", dtype=torch.int16)
+        stream.cpu().numpy().tofile(os.path.join(raw, "single_1", view,
+                                                 "adc_data.bin"))
+        for f in range(frames):
+            cube = radar_cube_single_frame(decode_dca1000(stream[f], rp),
+                                           rp)
+            cube[rp.num_kept_chirps // 2] = 0
+            np.save(os.path.join(data, "single_1", view, f"{f:09d}.npy"),
+                    cube.cpu().numpy())
+    rng = np.random.default_rng(seed)
+    blocks = [{"image": f"{f:09d}.jpg",
+               "joints": rng.uniform(40, 210, (14, 2)).tolist(),
+               "bbox": [0.0, 0.0, 1500.0, 1500.0]} for f in range(frames)]
+    for phase in ("train", "val", "test"):
+        with open(os.path.join(data, f"hrnet_annot_{phase}.json"), "w") as fp:
+            json.dump([blocks], fp)
+    return root
+
+
+def fast_runner_config(root: str, compute: str = "bfloat16"):
+    """fast_training_config() (config/mscsa_prgcn_tpu_fast.yaml: bfloat16
+    compute and wire, chunk-mode training from raw ADC, raw-ADC sequence
+    eval) over the sequence of write_adc_sequence, for RUNNER_EPOCHS
+    epochs; `compute` float32 (and float32 wire) for the holds against the
+    cube-fed and classic steps."""
+    from hupr_tpu_torch.config import fast_training_config
+
+    cfg = fast_training_config()
+    d = cfg.DATASET
+    d.dataDir, d.adcDir = os.path.join(root, "data"), os.path.join(root,
+                                                                   "raw")
+    d.duration = RUNNER_FRAMES
+    d.trainName = d.valName = d.testName = [1]
+    cfg.TRAINING.epochs = RUNNER_EPOCHS
+    if compute == "float32":
+        cfg.MODEL.computeDtype = cfg.SETUP.transferDtype = "float32"
+    return cfg
+
+
+def leaf_updates(torch, models, w0):
+    """Each floating leaf's update from w0 in the first model against the
+    second's, in L2 norm relative to the second's: {key: rel}."""
+    sd, sd_x = (m.state_dict() for m in models)
+    out = {}
+    for key, v in sd.items():
+        if not v.is_floating_point():
+            continue
+        d = (v.cpu() - w0[key]).double()
+        d_x = (sd_x[key].cpu() - w0[key]).double()
+        out[key] = ((d - d_x).norm() / d_x.norm()).item() \
+            if d_x.norm() > 0 else math.inf
+    return out
+
+
+def hold_steps(torch, name, results, models, w0):
+    """hold_readings, raising past a bar. Returns the readings."""
+    out, ok = hold_readings(torch, results, models, w0)
+    if not ok:
+        raise AssertionError(f"{name}: {out}")
+    return out
+
+
+def hold_readings(torch, results, models, w0):
+    """Losses, weights, BN statistics and each leaf's update of a path
+    (results[0], models[0]) against another's, at the runner phase's
+    float32 bars. Returns (the readings, whether all are within their
+    bars)."""
+    losses, losses_x = results
+    bars = TRAIN_BARS["f32"]
+    loss_rel = max(abs(a - c) / abs(c) for a, c in zip(losses, losses_x))
+    sd, sd_x = (m.state_dict() for m in models)
+    excess = max(allclose_excess(v, sd_x[k], PARAM_ATOL, PARAM_RTOL)
+                 for k, v in sd.items() if v.is_floating_point())
+    updates = leaf_updates(torch, models, w0)
+    worst = max(updates, key=updates.get)
+    out = {"losses": losses, "losses_other": losses_x,
+           "loss_max_rel_err": loss_rel, "allclose_excess": excess,
+           "update_max_rel_err": updates[worst], "update_worst_leaf": worst}
+    return out, (loss_rel <= bars["loss_rtol"] and excess <= 0
+                 and updates[worst] <= RUNNER_UPDATE_RTOL)
+
+
+def runner_fast_phase(torch, card: str):
+    """hupr_tpu_torch.main.run with fast_training_config() over one
+    synthetic RUNNER_FRAMES-frame sequence of raw captures
+    (write_adc_sequence): RUNNER_EPOCHS epochs of chunk-mode training from
+    raw ADC with raw-ADC sequence val eval after each, from a seeded
+    checkpoint.pth, with the kernel counts zeroed just before and read just
+    after: no fallback notice, finite losses, 12 forward and 12 backward
+    launches a step in mode bf16. Then, in float32 from the same weights on
+    the same windows (the runner phase's 8 steps: every chunk in order,
+    twice; the last of each epoch padded), the raw-ADC chunk step against
+    the cube chunk step, and the cube chunk step against the classic step,
+    at the runner phase's bars; and three planted faults that the first
+    hold must catch (the I and Q lanes swapped in the decode, the frames
+    off by one, one leaf left untrained). Times FAST_TIMED_EPOCHS epochs
+    of the chunk-mode train loop one by one after a warm-up epoch, and
+    raw-ADC sequence eval. Returns the results."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hupr_tpu_torch.data.adc import ADCFrameSource
+    from hupr_tpu_torch.data.dataset import get_dataset
+    from hupr_tpu_torch.engine import chunk_train
+    from hupr_tpu_torch.engine.runner import Runner
+    from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                             make_train_step)
+    from hupr_tpu_torch.main import run
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+
+    root = tempfile.mkdtemp(prefix="hupr_fast_")
+    cwd = os.getcwd()
+    try:
+        t0 = time.perf_counter()
+        write_adc_sequence(torch, root, RUNNER_FRAMES)
+        setup_s = time.perf_counter() - t0
+        os.chdir(root)
+        cfg = fast_runner_config(root)
+        seed_checkpoint(cfg, "fast")
+        w0 = torch.load(os.path.join("logs", "fast", "checkpoint.pth"),
+                        weights_only=True)["model_state_dict"]
+
+        # the main path: the CLI's flow on the fast recipe
+        printed = io.StringIO()
+        attention.reset_launch_counts()
+        with contextlib.redirect_stdout(printed):
+            trained, train_s = timed(torch, lambda: run(runner_args("fast"),
+                                                        cfg))
+        launches = wrapper_launches(attention)
+        print(printed.getvalue(), end="", flush=True)
+        t, b = cfg.TRAINING, cfg.TEST.batchSize
+        steps = RUNNER_EPOCHS * -(-RUNNER_FRAMES // t.batchSize)
+        evals = RUNNER_EPOCHS * -(-RUNNER_FRAMES // b)
+        want = {"attention_fwd": {"bf16": 12 * (steps + evals)},
+                "attention_bwd": {"bf16": 12 * steps},
+                "attention_fwd_unfolded": {}}
+        losses = []
+        for e in range(RUNNER_EPOCHS):
+            with open(f"logs/fast/train_loss_list_{e}.json") as fp:
+                losses += json.load(fp)
+
+        # the chunk-mode train loop alone (eval and checkpoints stubbed out
+        # of this instance), one epoch to warm up and FAST_TIMED_EPOCHS
+        # timed one by one (an epoch ends where its eval is called), and
+        # raw-ADC sequence eval
+        seed_checkpoint(cfg, "loop")
+        looped = Runner(runner_args("loop"), cfg)
+        looped.load_model_weight("checkpoint")
+        looped.cfg.TRAINING.epochs = 1 + FAST_TIMED_EPOCHS
+        marks = []
+
+        def epoch_end(**_):
+            torch.cuda.synchronize()
+            marks.append(time.perf_counter())
+            return 0.0
+
+        looped.eval = epoch_end
+        looped.save_model_weight = lambda *_: None
+        timed(torch, looped.train)
+        epoch_rates = sorted(RUNNER_FRAMES / (b - a)
+                             for a, b in zip(marks, marks[1:]))
+        cfg.TRAINING.epochs = RUNNER_EPOCHS
+        evaluator = Runner(runner_args("fast", True), cfg)
+        evaluator.load_model_weight("model_best")
+        evaluator.eval(visualization=False)              # warm-up
+        eval_ap, eval_s = timed(torch, lambda: evaluator.eval(
+            visualization=False))
+        del looped, evaluator
+
+        # float32 holds from the seeded weights, over the same steps
+        cfg32 = fast_runner_config(root, "float32")
+        d = cfg32.DATASET
+        geometry = (d.numKeypoints, d.heatmapSize, d.imgSize)
+        rp = d.radar_params()
+        ds = get_dataset("train", cfg32)
+        cube_loader = chunk_train.ChunkTrainLoader(ds, t.batchSize,
+                                                   shuffle=False)
+        adc_loader = chunk_train.ADCChunkLoader(
+            ds, t.batchSize, ADCFrameSource(d.adcDir, rp), shuffle=False)
+        # the chunks in order, for as many steps as the runner phase
+        # takes: Adam's first steps move each weight by about lr whatever
+        # its gradient's size, so a few steps hold the updates loosely
+        picks = list(range(len(cube_loader))) * RUNNER_EPOCHS
+        classic = {}
+
+        def classic_batch(ci):
+            if ci not in classic:
+                chunk = cube_loader.chunks[ci]
+                rows = [ds.raw_sample(chunk["row0"] + i)
+                        for i in range(chunk["true_b"])]
+                rows += [rows[-1]] * (t.batchSize - len(rows))
+                classic[ci] = {k: np.stack([r[k] for r in rows])
+                               for k in ("hori", "vert", "jointsGroup")}
+                classic[ci]["mask"] = (np.arange(t.batchSize)
+                                       < chunk["true_b"]).astype(np.float32)
+            return classic[ci]
+
+        cube = chunk_train.radar_cube_frames
+
+        def pinned(frames, params):
+            c = cube(frames, params)
+            c[:, params.num_kept_chirps // 2] = 0
+            return c
+
+        def drive(kind):
+            model = build_model(cfg32)
+            model.load_state_dict(w0)
+            tx = make_optimizer(cfg32, model)
+            state = TrainState(model, tx)
+            if kind == "classic":
+                step = make_train_step(model, tx, t.lossDecay, geometry)
+            elif kind == "cube":
+                step = chunk_train.make_chunk_train_step(model, tx, geometry)
+            else:
+                step = chunk_train.make_adc_chunk_train_step(
+                    model, tx, geometry, radar_params=rp,
+                    num_frames=d.numFrames)
+            losses = []
+            for i, ci in enumerate(picks):
+                if kind == "classic":
+                    batch = classic_batch(ci)
+                else:
+                    loader = adc_loader if kind == "adc" else cube_loader
+                    batch, _ = chunk_train.device_put_chunk(
+                        loader._assemble(loader.chunks[ci]))
+                state, m = step(state, batch, t.lr * t.lrDecay ** i, 0.0)
+                losses.append(m["loss"].item())
+            return losses, model
+
+        def adc_drive(dsp):
+            chunk_train.radar_cube_frames = dsp
+            try:
+                return drive("adc")
+            finally:
+                chunk_train.radar_cube_frames = cube
+
+        paths = {kind: drive(kind) for kind in ("classic", "cube")}
+        classic.clear()
+        paths["adc"] = adc_drive(pinned)
+        # planted faults that the raw-ADC hold must catch: the decode's I
+        # and Q lanes swapped, each chunk's frames off by one, and the
+        # leaf that reads the hold's worst update left untrained
+        untrained = build_model(cfg32)
+        untrained.load_state_dict(paths["adc"][1].state_dict())
+        leaf = "RAchirpNet.temporalConvWx1x1.weight"
+        with torch.no_grad():
+            untrained.get_parameter(leaf).copy_(w0[leaf])
+        faulty = {
+            "iq_swapped": adc_drive(
+                lambda f, p: pinned(1j * f.conj(), p)),
+            "frames_off_by_one": adc_drive(
+                lambda f, p: pinned(f.roll(1, 0), p)),
+            "leaf_untrained": (paths["adc"][0], untrained)}
+        planted = {}
+        for fault, (f_losses, f_model) in faulty.items():
+            reading, passed = hold_readings(
+                torch, (f_losses, paths["cube"][0]),
+                (f_model, paths["cube"][1]), w0)
+            planted[fault] = {key: reading[key] for key in (
+                "loss_max_rel_err", "allclose_excess", "update_max_rel_err",
+                "update_worst_leaf")} | {"caught": not passed}
+        del faulty, untrained
+        holds = {
+            "adc_vs_cube": hold_steps(
+                torch, "ADC chunk step vs cube chunk step",
+                (paths["adc"][0], paths["cube"][0]),
+                (paths["adc"][1], paths["cube"][1]), w0),
+            "chunk_vs_classic": hold_steps(
+                torch, "cube chunk step vs classic step",
+                (paths["cube"][0], paths["classic"][0]),
+                (paths["cube"][1], paths["classic"][1]), w0)}
+        del paths
+
+        result = {
+            "card": card, "frames": RUNNER_FRAMES, "epochs": RUNNER_EPOCHS,
+            "compute_dtype": cfg.MODEL.computeDtype,
+            "loader": type(trained._chunk_loader).__name__,
+            "eval_source": "adc" if trained._seq_eval.adc is not None
+            else "cubes",
+            "train_batch": t.batchSize, "test_batch": b, "setup_s": setup_s,
+            "cli_run_s": train_s,
+            # the median of the timed epochs, and their spread
+            "epoch_samples_per_sec": statistics.median(epoch_rates),
+            "epoch_samples_per_sec_min_max": [epoch_rates[0],
+                                              epoch_rates[-1]],
+            "epochs_timed": len(epoch_rates),
+            "seq_eval_frames_per_sec": RUNNER_FRAMES / eval_s,
+            "launches": launches, "losses": losses,
+            "val_ap_by_epoch": trained.epoch_aps, "eval_ap": eval_ap,
+            "holds_f32": holds, "planted_faults": planted}
+        print(json.dumps({"runner_fast": result}), flush=True)
+        checks = {
+            "no fallback notice": "requested" not in printed.getvalue(),
+            "raw-ADC chunk loader": result["loader"] == "ADCChunkLoader",
+            "raw-ADC eval": result["eval_source"] == "adc",
+            "launches": launches == want,
+            "losses": len(losses) == steps
+            and all(map(math.isfinite, losses)),
+            "val APs": len(trained.epoch_aps) == RUNNER_EPOCHS,
+            "eval AP": 0.0 <= eval_ap <= 1.0,
+            "epochs timed": len(epoch_rates) == FAST_TIMED_EPOCHS,
+            "planted faults caught": all(
+                f["caught"] for f in planted.values())}
+        failed = [name for name, ok in checks.items() if not ok]
+        if failed:
+            raise AssertionError(f"runner_fast checks failed: {failed}")
+        return result
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+
+
 def kernel_entry(name, mode, source, replaces, launches, rows, scale, per,
                  **extra):
     """One object of the `kernels` line: times and bounds summed over
@@ -1533,6 +2171,9 @@ def main() -> int:
     rows = check_attention(torch, peaks)
     bwd_rows = check_attention_bwd(torch, peaks)
     mode_rows = check_attention_modes(torch, peaks)
+    b1_rows = check_attention_b1(torch, peaks)
+    # before any profiler run: it leaves later launches slower on the host
+    st, stream_frames = stream_phase(torch, smi)
 
     gen = torch.Generator(device="cuda").manual_seed(1)
     shape = (FRAMES, 4, 192, 256)
@@ -1561,6 +2202,9 @@ def main() -> int:
     del requests, outs_f32
     micro_rows, micro_launches, _ = microbench_phase(torch, peaks)
     rr = runner_phase(torch, smi)
+    rf = runner_fast_phase(torch, smi)
+    stream_launches(torch, st, stream_frames)
+    del stream_frames
     backward_passes(torch)
 
     shapes = "4 at each (N, C) of (256, 256), (1024, 128), (4096, 64)"
@@ -1568,6 +2212,13 @@ def main() -> int:
     per_step = f"one train step: 12 launches, {shapes}, B={TRAIN_BATCH}"
     fwd_src, bwd_src = "hupr_tpu/ops/attention.py:90", \
         "hupr_tpu/ops/attention.py:188"
+    per_frame = f"one streamed frame: 12 launches, {shapes}, B=1"
+
+    def b1(mode):
+        return {key: 4 * sum(r[key] for r in b1_rows if r["mode"] == mode)
+                for key in ("kernel_ms", "plain_ms", "library_ms",
+                            "bound_ms")} | {"per": per_frame}
+
     lse_keys = {"kernel_ms": "fwd_with_lse_ms",
                 "plain_ms": "fwd_with_lse_plain_ms",
                 "library_ms": "fwd_with_lse_library_ms",
@@ -1576,8 +2227,12 @@ def main() -> int:
         kernel_entry("attention_fwd", "f32", "attention_fwd", fwd_src,
                      {"serve": sl["attention_launches"],
                       "train": tr["attention_fwd_launches"],
-                      "runner": rr["launches"]["attention_fwd"]}, rows, 4,
-                     per_request,
+                      "runner": rr["launches"]["attention_fwd"],
+                      "stream":
+                          st["f32"]["sequence_wrapper_launches"]["f32"]},
+                     rows, 4, per_request, stream_B1=b1("f32"),
+                     stream_traced=st["f32"][
+                         "traced_attention_fwd_kernels"],
                      body="attention_fwd_tf32 (3xTF32 on mma.sync, "
                           "csrc/tf32.cuh)",
                      rel_err=max(r["rel_err"] for r in rows),
@@ -1594,10 +2249,19 @@ def main() -> int:
     ]
     for mode, _, _ in BF16_MODES:
         mine = [r for r in mode_rows if r["mode"] == mode]
+        extra = {}
         if mode == "bf16":
+            fast = rf["launches"]
             fwd_launches = {"serve_bf16": sl16["attention_launches"],
-                            "train_bf16": tr16["attention_fwd_launches"]}
-            bwd_launches = {"train_bf16": tr16["attention_bwd_launches"]}
+                            "train_bf16": tr16["attention_fwd_launches"],
+                            "stream_bf16": st["bf16"][
+                                "sequence_wrapper_launches"]["bf16"],
+                            "runner_fast": fast["attention_fwd"]["bf16"]}
+            bwd_launches = {"train_bf16": tr16["attention_bwd_launches"],
+                            "runner_fast": fast["attention_bwd"]["bf16"]}
+            extra["stream_B1"] = b1("bf16")
+            extra["stream_traced"] = \
+                st["bf16"]["traced_attention_fwd_kernels"]
         else:
             fwd_launches = {"pallas_bf16": ops_launches[mode]["fwd"]}
             bwd_launches = {"pallas_bf16": ops_launches[mode]["bwd"]}
@@ -1607,7 +2271,8 @@ def main() -> int:
             fwd_launches, [r["fwd_B32"] for r in mine], 4, per_request,
             with_lse_per_step={key: 4 * sum(r[key] for r in with_lse)
                                for key in ("kernel_ms", "plain_ms",
-                                           "library_ms", "bound_ms")}))
+                                           "library_ms", "bound_ms")},
+            **extra))
         entries.append(kernel_entry(
             f"attention_bwd_{mode}", mode, "attention_bwd", bwd_src,
             bwd_launches, [r["bwd_B20"] for r in mine], 4, per_step))

@@ -232,9 +232,10 @@ def flagship_training_config() -> Config:
 
 def fast_serving_config() -> Config:
     """`config/mscsa_prgcn_tpu_fast.yaml` built without PyYAML: the
-    flagship with MODEL.computeDtype bfloat16 and the YAML's raw-ADC and
-    wire-format fields (which the serving path and the train step do not
-    read). The split lists are left empty."""
+    flagship with MODEL.computeDtype bfloat16, and the YAML's DATASET.adcDir,
+    TEST.sequenceSource adc (the Runner's raw-ADC sequence eval) and
+    SETUP.transferDtype bfloat16 (the cube planes' wire format). The split
+    lists are left empty."""
     cfg = flagship_serving_config()
     cfg.DATASET.adcDir = "preprocessing/raw_data/iwr1843/HuPR"
     cfg.MODEL = ModelConfig(numFilters=32, attention="pallas",
@@ -247,8 +248,9 @@ def fast_serving_config() -> Config:
 def fast_training_config() -> Config:
     """`config/mscsa_prgcn_tpu_fast.yaml`'s model and training recipe built
     without PyYAML: the flagship recipe (batch 20, Adam at lr 1e-4) with
-    bfloat16 compute, and the YAML's chunkTrain / chunkSource fields, which
-    the train step does not read."""
+    bfloat16 compute, chunk-mode training from the raw captures
+    (TRAINING.chunkTrain, chunkSource adc) and raw-ADC sequence eval, as
+    the Runner runs them (engine/chunk_train.py, engine/seq_eval.py)."""
     cfg = fast_serving_config()
     cfg.TRAINING = flagship_training_config().TRAINING
     cfg.TRAINING.chunkTrain = True

@@ -13,6 +13,13 @@ Kept from the reference and the JAX package:
     (base.py:49-64, 124-152) -> {val,test}_results.json
   * per-epoch val evaluation (sequence mode by default, classic
     otherwise), loss-list JSONs, a progress line per batch.
+  * the JAX package's fast-path levers: chunk-mode training
+    (TRAINING.chunkTrain, from cube planes or, with TRAINING.chunkSource
+    adc, from the raw captures under DATASET.adcDir) and raw-ADC
+    sequence eval (TEST.sequenceSource adc). Where a lever does not apply
+    the Runner prints the JAX package's notice and takes its fallback:
+    the classic loader when chunk mode is inapplicable, cube chunks or
+    cube planes when the captures do not cover the split.
 
 On the card, the host stays a step ahead: batch i+1 is copied while step i
 runs (utils/prefetch.device_prefetch), and the losses and predictions of
@@ -21,8 +28,7 @@ a step are read one step later, from copies started right after it
 step queued behind them.
 
 Not ported, and refused with NotImplementedError: multi-host runs
-(HUPR_MULTIHOST, ROADMAP A9), chunk-mode training (TRAINING.chunkTrain)
-and raw-ADC sequence eval (TEST.sequenceSource: adc), both ROADMAP A4.
+(HUPR_MULTIHOST, ROADMAP A9).
 """
 
 from __future__ import annotations
@@ -34,10 +40,15 @@ from typing import Optional
 import numpy as np
 import torch
 
+from hupr_tpu_torch.data.adc import ADCFrameSource
 from hupr_tpu_torch.data.dataset import BatchLoader, get_dataset
 from hupr_tpu_torch.engine.checkpoint import (AsyncCheckpointer,
                                               find_checkpoint,
                                               load_checkpoint)
+from hupr_tpu_torch.engine.chunk_train import (CHUNK_KEYS, ADCChunkLoader,
+                                               ChunkTrainLoader,
+                                               make_adc_chunk_train_step,
+                                               make_chunk_train_step)
 from hupr_tpu_torch.engine.logger import Logger
 from hupr_tpu_torch.engine.seq_eval import SequenceEvaluator
 from hupr_tpu_torch.engine.steps import (TrainState, make_eval_step,
@@ -63,21 +74,11 @@ def xywh_to_center_scale(x, y, w, h, aspect_ratio=1.0, pixel_std=200.0):
 
 def refuse_unported(cfg, args) -> None:
     """Raise NotImplementedError, naming the ROADMAP item that owns it,
-    for what a config or the environment asks and the port lacks. None of
-    them falls back to another path: each would give another result."""
+    for what the environment asks and the port lacks, instead of running
+    another path: multi-host runs (HUPR_MULTIHOST=1)."""
     if os.environ.get("HUPR_MULTIHOST") == "1":
         raise NotImplementedError(
             "HUPR_MULTIHOST=1: multi-host runs are not ported (ROADMAP A9)")
-    if not args.eval and getattr(cfg.TRAINING, "chunkTrain", False):
-        raise NotImplementedError(
-            "TRAINING.chunkTrain: chunk-mode training is not ported "
-            "(ROADMAP A4); it batches consecutive windows, so the classic "
-            "loader would train on other batches")
-    if getattr(cfg.TEST, "sequenceEval", True) and \
-            getattr(cfg.TEST, "sequenceSource", "cubes") == "adc":
-        raise NotImplementedError(
-            "TEST.sequenceSource: adc: raw-ADC sequence eval is not ported "
-            "(ROADMAP A4)")
 
 
 class Runner:
@@ -118,11 +119,40 @@ class Runner:
 
         wire = transfer_dtype(getattr(cfg.SETUP, "transferDtype", "float32"))
         self.train_set, self.train_loader = None, None
+        self._chunk_loader, self._chunk_step = None, None
         if not args.eval:
             self.train_set = get_dataset("train", cfg, args.sampling_ratio)
-            self.train_loader = BatchLoader(
-                self.train_set, t.batchSize, shuffle=True, seed=args.seed,
-                workers=cfg.SETUP.numWorkers, transfer_dtype=wire)
+            chunk = getattr(t, "chunkTrain", False)
+            if chunk:
+                if not ChunkTrainLoader.applicable(self.train_set, cfg):
+                    print("==========>chunkTrain requested but inapplicable "
+                          "(needs sampling_ratio 1, lossDecay -1, "
+                          "full-duration sequences) — classic loader")
+                elif getattr(t, "chunkSource", "cubes") == "adc" and \
+                        self._try_adc_chunk(cfg, args, geometry):
+                    pass  # raw-ADC loader and step installed
+                else:
+                    self._chunk_loader = ChunkTrainLoader(
+                        self.train_set, t.batchSize, seed=args.seed,
+                        shuffle=True, transfer_dtype=wire)
+                    self._chunk_step = make_chunk_train_step(
+                        self.model, self.tx, geometry)
+            if self._chunk_loader is None:
+                # only when chunk mode does not drive training
+                self.train_loader = BatchLoader(
+                    self.train_set, t.batchSize, shuffle=True,
+                    seed=args.seed, workers=cfg.SETUP.numWorkers,
+                    transfer_dtype=wire)
+                if not chunk and \
+                        ChunkTrainLoader.applicable(self.train_set, cfg):
+                    # the JAX package's hint to input-bound classic runs
+                    print("==========>hint: this run qualifies for "
+                          "chunk-mode training (TRAINING.chunkTrain: "
+                          "true, or config/mscsa_prgcn_tpu_fast.yaml) "
+                          "— ~an order of magnitude faster when the "
+                          "loader or host->device link is the "
+                          "bottleneck; per-step math is unchanged, "
+                          "epochs shuffle chunks instead of windows")
         # args.evalPhase overrides the reference's eval->test / train->val
         # pairing (its main.py:36-44), as in the JAX package
         phase = getattr(args, "evalPhase", None) or \
@@ -133,12 +163,17 @@ class Runner:
                                        workers=cfg.SETUP.numWorkers,
                                        transfer_dtype=wire)
 
+        # steps an epoch under the loader that drives training (chunk mode
+        # has ceil(duration / B) chunks a sequence, more than ceil(N / B)
+        # when duration % B != 0); None in eval mode
+        driving_loader = (self._chunk_loader if self._chunk_loader
+                          is not None else self.train_loader)
         # warmup LR back-computation (run.py:30-32); eval mode has no train
         # loader and never steps the optimizer
-        if t.warmupEpoch == -1 or self.train_loader is None:
+        if t.warmupEpoch == -1 or driving_loader is None:
             self.lr = t.lr
         else:
-            step_size = len(self.train_loader) * t.warmupEpoch
+            step_size = len(driving_loader) * t.warmupEpoch
             self.lr = t.lr / (t.warmupGrowth ** step_size)
         # loss-annealing weight; the reference's LossComputer advances it
         # before combining the losses, on every computeLoss call, train and
@@ -147,10 +182,32 @@ class Runner:
 
         self.logger = Logger()
         self.checkpointer = AsyncCheckpointer()
-        if self.train_loader is not None:
-            print(f"==========>Train set size: {len(self.train_loader)} "
-                  f"batches")
+        if driving_loader is not None:
+            kind = "chunk steps" if self._chunk_loader is not None \
+                else "batches"
+            print(f"==========>Train set size: {len(driving_loader)} {kind}")
         print("==========>Test set size:", len(self.test_loader))
+
+    def _try_adc_chunk(self, cfg, args, geometry) -> bool:
+        """Install the raw-ADC chunk loader and step (TRAINING.chunkSource:
+        adc) when the captures cover the train split; otherwise print the
+        JAX package's notice and return False (the caller installs cube
+        chunks)."""
+        d = cfg.DATASET
+        rp = d.radar_params()       # raises on a geometry mismatch
+        adc = ADCFrameSource(d.adcDir, rp)
+        if not ADCChunkLoader.applicable(self.train_set, cfg, adc):
+            print("==========>chunkSource adc requested but the captures "
+                  f"under DATASET.adcDir={d.adcDir!r} don't cover the "
+                  "train split — cube chunks")
+            return False
+        self._chunk_loader = ADCChunkLoader(
+            self.train_set, cfg.TRAINING.batchSize, adc, seed=args.seed,
+            shuffle=True)
+        self._chunk_step = make_adc_chunk_train_step(
+            self.model, self.tx, geometry, radar_params=rp,
+            num_frames=d.numFrames)
+        return True
 
     # ---------------- LR schedule (base.py:66-72) ----------------
 
@@ -269,9 +326,27 @@ class Runner:
         self._eval_len = len(self.test_set)
         if self._sequence_eval_applicable():
             if self._seq_eval is None:
-                self._seq_eval = SequenceEvaluator(self.model, self.cfg)
+                self._seq_eval = SequenceEvaluator(
+                    self.model, self.cfg, adc_source=self._adc_eval_source())
             return self._seq_eval.eval_batches(self.test_set)
         return self._classic_eval_batches()
+
+    def _adc_eval_source(self):
+        """The ADCFrameSource of raw-ADC sequence eval (TEST.sequenceSource:
+        adc) when the captures cover the split; otherwise None (cube
+        planes), with the JAX package's notice when adc was asked for."""
+        if getattr(self.cfg.TEST, "sequenceSource", "cubes") != "adc":
+            return None
+        d = self.cfg.DATASET
+        rp = d.radar_params()       # raises on a geometry mismatch
+        adc = ADCFrameSource(d.adcDir, rp)
+        if not SequenceEvaluator.adc_applicable(self.test_set, self.cfg,
+                                                adc):
+            print("==========>sequenceSource adc requested but the captures "
+                  f"under DATASET.adcDir={d.adcDir!r} don't cover the "
+                  "test split — cube planes")
+            return None
+        return adc
 
     def _consume_eval_batch(self, item, loss_list, save_preds,
                             visualization: bool, epoch: int):
@@ -325,10 +400,22 @@ class Runner:
         self.logger.display(loss, float(out["loss2"]), true_b, epoch)
         loss_list.append(loss)
 
+    def _train_batches(self):
+        """The epoch's batches on the card, (device_batch, host_batch,
+        true_b): chunk batches in chunk mode (TRAINING.chunkTrain), else
+        the classic loader's, the last one padded to the batch size."""
+        if self._chunk_loader is not None:
+            return device_prefetch(self._chunk_loader, self.device,
+                                   keys=CHUNK_KEYS)
+        return device_prefetch(self.train_loader, self.device,
+                               pad_to=self.cfg.TRAINING.batchSize)
+
     def train(self):
         """Train from self.start_epoch to TRAINING.epochs; evaluate, save
-        the checkpoints and the loss list after each epoch."""
+        the checkpoints and the loss list after each epoch. In chunk mode
+        the step consumes chunk batches; the schedule is the same."""
         t = self.cfg.TRAINING
+        step = self._chunk_step or self.train_step
         for epoch in range(self.start_epoch, t.epochs):
             loss_list = []
             self.logger.clear(len(self.train_set))
@@ -336,10 +423,9 @@ class Runner:
             pending = None
             with float32_math():
                 for idx_batch, (device_batch, _, true_b) in enumerate(
-                        device_prefetch(self.train_loader, self.device,
-                                        pad_to=t.batchSize)):
+                        self._train_batches()):
                     self.advance_alpha()
-                    self.state, metrics = self.train_step(
+                    self.state, metrics = step(
                         self.state, device_batch, self.lr, self.alpha)
                     fetched = PendingFetch({"loss": metrics["loss"],
                                             "loss2": metrics["loss2"]})

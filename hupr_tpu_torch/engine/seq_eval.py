@@ -24,8 +24,12 @@ Applicable (the Runner falls back to the classic loader otherwise) when:
     reference's clamp, `index % duration`, defines in-range windows only
     then).
 
-Raw-ADC sequence eval (TEST.sequenceSource: adc) is not ported (ROADMAP
-A4): the Runner raises on it.
+Raw-ADC mode (TEST.sequenceSource: adc) ships each frame's raw int16
+DCA1000 capture slice (768 KiB) instead of its cube planes, and the encode
+decodes it and runs the radar cube DSP on the card first
+(chunk_train.make_adc_frame_prep): evaluation straight from the sensor's
+.bin files, with no offline .npy hop. Its results equal the cube-fed
+path's on cubes the same DSP wrote (tests/test_torch_chunk.py).
 """
 
 from __future__ import annotations
@@ -37,10 +41,11 @@ from typing import Iterator, List, Tuple
 import numpy as np
 import torch
 
+from hupr_tpu_torch.engine.chunk_train import (cube_frame_prep,
+                                               make_adc_frame_prep)
 from hupr_tpu_torch.engine.pipeline import replicate_pad
 from hupr_tpu_torch.ops.heatmap import (bce_loss, generate_target_batch,
                                         get_max_preds)
-from hupr_tpu_torch.ops.normalize import normalize_radar_window
 from hupr_tpu_torch.utils.device import float32_math
 from hupr_tpu_torch.utils.prefetch import stop_aware_put
 from hupr_tpu_torch.utils.transfer import cast_for_transfer, transfer_dtype
@@ -59,27 +64,39 @@ def sequence_groups(image_ids: List[int]) -> List[Tuple[int, int]]:
     return groups
 
 
-def make_sequence_encoder(model, group: int):
-    """encode(hre, him, vre, vim, pad_to) -> (ra_pad, re_pad).
+def _planes_prep(planes):
+    """A view's (re, im) chirp planes, (F, C, R, A, E) each in the wire
+    dtype -> normalized model input (F, 1, C, 2, R, A, E)."""
+    return cube_frame_prep(torch.stack(planes, dim=2))
 
-    Inputs are one sequence's per-frame chirp planes, (F, C, R, A, E) per
-    component and view, on the model's device in the wire dtype. Outputs
-    are the chirp-encoded maps (pad_to + G - 1, R, A, Fc) per view,
+
+def make_sequence_encoder(model, group: int, frame_prep=_planes_prep):
+    """encode(hori, vert, pad_to) -> (ra_pad, re_pad).
+
+    Inputs are one sequence's per-view payloads for `frame_prep`, on the
+    model's device: by default its (re, im) chirp planes, (F, C, R, A, E)
+    each in the wire dtype; with make_adc_frame_prep its raw int16
+    DCA1000 stream slices (F, frame_samples). Outputs are the
+    chirp-encoded maps (pad_to + G - 1, R, A, Fc) per view,
     replicate-padded for window slicing: frames past F repeat the last
     frame, so that the last window batch is whole (its extra windows are
     masked out of the loss and dropped by the caller)."""
 
-    def prep(re, im):
-        x = torch.stack([re, im], dim=2)             # (F, C, 2, R, A, E)
-        return normalize_radar_window(x.to(torch.float32))[:, None]
-
-    def encode(hre, him, vre, vim, pad_to: int):
-        ra, re_m = model.chirp_maps(prep(hre, him), prep(vre, vim))
+    def encode(hori, vert, pad_to: int):
+        ra, re_m = model.chirp_maps(frame_prep(hori), frame_prep(vert))
         ra, re_m = ra[:, 0], re_m[:, 0]              # (F, R, A, Fc)
         return (replicate_pad(ra, group, pad_to),
                 replicate_pad(re_m, group, pad_to))
 
     return encode
+
+
+def make_adc_sequence_encoder(model, group: int, radar_params=None,
+                              num_frames: int = 8):
+    """make_sequence_encoder on raw int16 DCA1000 stream slices: decode,
+    radar cube DSP, normalize and the MNet chirp encode on the card."""
+    return make_sequence_encoder(
+        model, group, make_adc_frame_prep(radar_params, num_frames))
 
 
 def make_window_eval_step(model, group: int, geometry=(14, 64, 256),
@@ -122,9 +139,11 @@ class SequenceEvaluator:
     eval_batches(dataset) yields (out, image_ids, bbox, true_b) tuples
     equal to the classic device_prefetch + eval_step loop's, from the
     model's current weights. Each call runs in eval mode, under
-    torch.inference_mode and float32_math (TF32 off)."""
+    torch.inference_mode and float32_math (TF32 off). With `adc_source`
+    (a data.adc.ADCFrameSource; TEST.sequenceSource: adc) it reads raw
+    int16 capture slices instead of .npy cubes."""
 
-    def __init__(self, model, cfg):
+    def __init__(self, model, cfg, adc_source=None):
         d = cfg.DATASET
         self.model = model
         self.device = next(model.parameters()).device
@@ -133,7 +152,12 @@ class SequenceEvaluator:
         self.group = d.numGroupFrames
         self.batch_size = cfg.TEST.batchSize
         self.geometry = (d.numKeypoints, d.heatmapSize, d.imgSize)
-        self._encode = make_sequence_encoder(model, self.group)
+        self.adc = adc_source
+        if adc_source is not None:
+            self._encode = make_adc_sequence_encoder(
+                model, self.group, d.radar_params(), d.numFrames)
+        else:
+            self._encode = make_sequence_encoder(model, self.group)
         self._step = make_window_eval_step(model, self.group, self.geometry,
                                            self.batch_size)
 
@@ -149,19 +173,37 @@ class SequenceEvaluator:
         groups = sequence_groups(dataset.image_ids)
         return all(n == dataset.duration for _, n in groups)
 
+    @staticmethod
+    def adc_applicable(dataset, cfg, adc_source) -> bool:
+        """Raw-ADC eval also needs the capture .bin files to cover the
+        split (ADCChunkLoader.applicable's gate)."""
+        if not SequenceEvaluator.applicable(dataset, cfg):
+            return False
+        return adc_source is not None and \
+            adc_source.available(dataset.image_ids)
+
     def _load_planes(self, dataset, start: int, length: int):
-        """Host side: one sequence's per-frame (C, R, A, E) cube planes,
-        [hre, him, vre, vim], in the wire dtype; pinned when the card
-        takes them."""
-        idx = range(start, start + length)
+        """Host side: one sequence's payload, pinned when the card takes
+        it. In raw-ADC mode its int16 capture slices [hori, vert], each
+        (F, frame_samples); else its per-frame (C, R, A, E) cube planes
+        [hre, him, vre, vim] in the wire dtype."""
         out = []
-        for paths in (dataset.paths_hori, dataset.paths_vert):
-            frames = dataset._frames([paths[i] for i in idx])
-            for c in (0, 1):
-                p = torch.as_tensor(cast_for_transfer(
-                    np.stack([f[c] for f in frames]), self.transfer_dtype))
-                out.append(p.pin_memory() if self.device.type == "cuda"
-                           else p)
+        if self.adc is not None:
+            for view in ("hori", "vert"):
+                arr = np.empty((length, self.adc.frame_samples), np.int16)
+                self.adc.read_frames(dataset.image_ids, start, length,
+                                     view, arr)
+                out.append(torch.from_numpy(arr))
+        else:
+            idx = range(start, start + length)
+            for paths in (dataset.paths_hori, dataset.paths_vert):
+                frames = dataset._frames([paths[i] for i in idx])
+                for c in (0, 1):
+                    out.append(torch.as_tensor(cast_for_transfer(
+                        np.stack([f[c] for f in frames]),
+                        self.transfer_dtype)))
+        if self.device.type == "cuda":
+            out = [p.pin_memory() for p in out]
         return out
 
     def _call(self, fn, *args):
@@ -210,7 +252,9 @@ class SequenceEvaluator:
                 n_batches = -(-length // self.batch_size)
                 pad_to = n_batches * self.batch_size
                 planes = [p.to(dev, non_blocking=True) for p in planes]
-                ra_pad, re_pad = self._call(self._encode, *planes, pad_to)
+                views = planes if self.adc is not None \
+                    else (planes[:2], planes[2:])
+                ra_pad, re_pad = self._call(self._encode, *views, pad_to)
                 del planes
                 # the sequence's joints go to the card once, zero-padded to
                 # pad_to, next to its planes: no host-to-device copy (and

@@ -1,9 +1,14 @@
 """Radar-cube DSP, batched over frames with torch.fft.
 
 Counterpart of `hupr_tpu/ops/dsp.py` (reference
-preprocessing/process_iwr1843.py generateHeatmap): one IWR1843 frame
-(4 RX, 192 TDM chirps, 256 ADC samples) complex -> radar cube
-(16 Doppler chirps, 64 range, 64 azimuth, 8 elevation) complex.
+preprocessing/process_iwr1843.py):
+  decode_dca1000       getadcDataFromDCA1000: the DCA1000's int16 stream
+                       -> complex ADC samples (RX, chirps, ADC)
+  frames_from_adc      a decoded capture -> per-frame stacks
+  radar_cube_frames    generateHeatmap: one IWR1843 frame (4 RX, 192 TDM
+                       chirps, 256 ADC samples) complex -> radar cube
+                       (16 Doppler chirps, 64 range, 64 azimuth, 8
+                       elevation) complex, batched over frames
 """
 
 from __future__ import annotations
@@ -33,8 +38,42 @@ class RadarParams:
         return self.num_adc_samples // self.adc_ratio
 
     @property
+    def num_frames(self) -> int:
+        return self.frame_per_second * self.duration_s
+
+    @property
     def num_kept_chirps(self) -> int:
         return self.idx_proc_chirp // self.num_group_chirp
+
+
+def decode_dca1000(raw: torch.Tensor,
+                   params: RadarParams = RadarParams()) -> torch.Tensor:
+    """DCA1000 int16 stream (..., S) -> complex64 ADC samples
+    (..., RX, chirps, ADC), over any leading axes.
+
+    The capture interleaves two LVDS lanes in rows of four int16 values,
+    [l0a, l0b, l1a, l1b]: lane 0 carries I and lane 1 Q. The I/Q series
+    run in blocks of num_adc_samples that cycle through RX 0..3. Integer
+    reshuffling and an exact cast: equal to the JAX package's bit for bit.
+    """
+    p = params
+    lead = raw.shape[:-1]
+    quad = raw.reshape(*lead, -1, p.num_lanes * 2)
+    lane_i = quad[..., 0:2].reshape(*lead, -1)
+    lane_q = quad[..., 2:4].reshape(*lead, -1)
+    iq = torch.complex(lane_i.to(torch.float32), lane_q.to(torch.float32))
+    blocks = iq.reshape(*lead, -1, p.num_rx, p.num_adc_samples)
+    return blocks.transpose(-3, -2)                   # (..., RX, chirps, ADC)
+
+
+def frames_from_adc(adc: torch.Tensor,
+                    params: RadarParams = RadarParams()) -> torch.Tensor:
+    """A decoded capture (RX, totalChirps, ADC) -> per-frame stacks
+    (F, RX, numChirp, ADC); a partial last frame is dropped (reference
+    :189-191)."""
+    f = adc.shape[1] // params.num_chirp
+    return adc[:, :f * params.num_chirp].reshape(
+        adc.shape[0], f, params.num_chirp, -1).transpose(0, 1)
 
 
 def radar_cube_frames(frames: torch.Tensor,
@@ -78,3 +117,10 @@ def radar_cube_frames(frames: torch.Tensor,
     cube = merged.permute(0, 3, 4, 2, 1)              # (F, C, R, A, E)
     cube = torch.fft.fftshift(cube, dim=(3, 4))
     return torch.flip(cube, dims=(3, 4))
+
+
+def radar_cube_single_frame(frame: torch.Tensor,
+                            params: RadarParams = RadarParams()
+                            ) -> torch.Tensor:
+    """One frame (RX, numChirp, ADC) complex -> its cube (C, R, A, E)."""
+    return radar_cube_frames(frame[None], params)[0]

@@ -52,6 +52,11 @@ def device_prefetch(batch_iter: Iterable[dict], device,
     """Yields (device_batch, host_batch, true_b) for each host batch of
     `batch_iter` (numpy arrays, or torch tensors for half-width planes).
 
+    A chunk batch (engine/chunk_train.py: keys=CHUNK_KEYS) says its real
+    rows itself: its `trueB` and `imageId` pass through into the device
+    batch as they are, its gather table `rel` goes to the card as int64,
+    and it is never padded here (its loader pads it).
+
     A batch shorter than `pad_to` is padded to it by repeating its last
     sample and carries a 0/1 'mask' of its real rows; a full batch carries
     no mask (the steps read none as all rows real, and the train step
@@ -72,28 +77,37 @@ def device_prefetch(batch_iter: Iterable[dict], device,
             raise NotImplementedError(
                 "process-sliced batches (multi-host) are not ported: "
                 "ROADMAP A9")
-        true_b = batch[keys[0]].shape[0]
-        target = max(true_b, pad_to or 0)
-        host = {k: torch.as_tensor(_pad_rows(batch[k], target))
-                for k in keys}
-        if target > true_b:
-            host["mask"] = torch.from_numpy(
-                (np.arange(target) < true_b).astype(np.float32))
+        if "trueB" in batch:
+            true_b = int(batch["trueB"])
+            host = {k: torch.as_tensor(batch[k]) for k in keys}
+            host["rel"] = host["rel"].to(torch.int64)
+            passed = {k: batch[k] for k in ("trueB", "imageId")}
+        else:
+            true_b = batch[keys[0]].shape[0]
+            target = max(true_b, pad_to or 0)
+            host = {k: torch.as_tensor(_pad_rows(batch[k], target))
+                    for k in keys}
+            if target > true_b:
+                host["mask"] = torch.from_numpy(
+                    (np.arange(target) < true_b).astype(np.float32))
+            passed = {}
         if not cuda:
-            return {k: v.to(device) for k, v in host.items()}, None, true_b
+            dev = {k: v.to(device) for k, v in host.items()}
+            return {**dev, **passed}, None, true_b
         with torch.cuda.stream(copy_stream):
             dev = {k: v.pin_memory().to(device, non_blocking=True)
                    for k, v in host.items()}
         done = torch.cuda.Event()
         done.record(copy_stream)
-        return dev, done, true_b
+        return {**dev, **passed}, done, true_b
 
     def ready(dev, done):
         if done is not None:
             compute = torch.cuda.current_stream(device)
             compute.wait_event(done)
             for t in dev.values():
-                t.record_stream(compute)
+                if isinstance(t, torch.Tensor):
+                    t.record_stream(compute)
         return dev
 
     for batch in batch_iter:

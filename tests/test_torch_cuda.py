@@ -470,3 +470,104 @@ def test_runner_epoch_on_card(cuda, tmp_path, monkeypatch):
         aps.append(ev.eval(visualization=False))
     assert 0.0 < aps[0] < 1.0
     assert abs(aps[0] - aps[1]) <= 5e-3
+
+
+# --------------------------------------------------------------- streaming
+
+@pytest.mark.parametrize("mode", ["f32", "bf16"])
+@pytest.mark.parametrize("n,c", [(256, 256), (1024, 128), (4096, 64)])
+def test_attention_fwd_b1_matches_plain(cuda, n, c, mode):
+    """The forward at B=1, as the stream launches it (a (256, 256) call is
+    4 blocks): float32 within 1e-4 and chip_smoke's REL_F32_FWD of the
+    plain version, bfloat16 within 2^-7.5 of its twin and 2^-8.5 of the
+    float32 ideal."""
+    smoke = _chip_smoke()
+    if mode == "f32":
+        gen = torch.Generator(device=cuda).manual_seed(n)
+        k, q, m = (torch.randn((1, n, c), generator=gen, device=cuda)
+                   for _ in range(3))
+    else:
+        k, q, m = _unit_spread(1, n, c, torch.bfloat16, cuda, seed=n)
+    with torch.inference_mode():
+        got = attention_fwd(k, q, m)
+        want = attention_plain(k, q, m)
+        ideal = attention_plain(*(t.float() for t in (k, q, m)))
+    torch.cuda.synchronize()
+    if mode == "f32":
+        assert (got - want).abs().max().item() <= 1e-4
+        assert smoke.rel_err(got, want) <= smoke.REL_F32_FWD
+    else:
+        _assert_rel(got, want, "twin", 2.0 ** -7.5)
+        _assert_rel(got, ideal, "ideal")
+
+
+def _traced_attention_kernels(fn):
+    """(fn(), the forward attention kernels the card ran in it, from
+    torch.profiler's device events)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and ("::attention_fwd_tf32<" in e.name
+                    or "::attention_fwd_tc<" in e.name))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_stream_graph_step_equals_eager(cuda, compute):
+    """StreamingPoseEstimator at the kernels' widths (numFilters 32) on
+    32x32 maps from a reduced capture: the CUDA graph step against the
+    eager step over one sequence of 10 frames and the flush: the same
+    keypoints, maxvals within 1e-5. The wrappers count the eager steps'
+    launches, the capture's warm-up step and the capture itself, and no
+    replay; the card's trace of a replayed frame holds the 12 forward
+    kernels."""
+    import numpy as np
+
+    from hupr_tpu_torch.engine.streaming import StreamingPoseEstimator
+    from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops.dsp import RadarParams
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    rp = RadarParams(num_adc_samples=128, num_chirp=48, idx_proc_chirp=16,
+                     num_group_chirp=2)
+    model = HuPRNet(num_filters=32, heatmap_size=32, attn_impl="pallas",
+                    compute_dtype=getattr(torch, compute))
+    state = synthetic_state_dict(model, seed=0, scale=0.03)
+    rng = np.random.default_rng(1)
+    frames = [rng.integers(-300, 300, (10, 4, 48, 128)).astype(np.int16)
+              for _ in range(4)]
+    outs = {}
+    for graph in (True, False):
+        est = StreamingPoseEstimator(model, state, rp, cuda_graph=graph)
+        outs[graph] = []
+        for t in range(10):
+            before = attention.attention_fwd.launches
+
+            def step(t=t):
+                return est.process_frame((frames[0][t], frames[1][t]),
+                                         (frames[2][t], frames[3][t]))
+
+            if graph and t == 9:
+                got, traced = _traced_attention_kernels(step)
+                assert traced == 12
+            else:
+                got = step()
+            outs[graph].append(got)
+            launched = attention.attention_fwd.launches - before
+            # the first graph step runs the capture's warm-up step and
+            # records the capture; a replay calls no wrapper
+            if graph:
+                assert launched == {0: 12, 1: 24}.get(t, 0)
+            else:
+                assert launched == 12
+        outs[graph] += est.flush()
+        assert est.cuda_graph is graph and len(outs[graph]) == 13
+    for (p, m), (pe, me) in zip(outs[True], outs[False]):
+        np.testing.assert_array_equal(p, pe)
+        np.testing.assert_allclose(m, me, rtol=0, atol=1e-5)
+    assert np.std([m for _, m in outs[True]]) > 1e-3

@@ -41,13 +41,17 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", len([m for m in sys.modules if m.startswith("hupr_tpu_torch")]))
 print("MAIN", "hupr_tpu_torch.main" in sys.modules)
+for m in ("data.adc", "engine.chunk_train", "engine.streaming"):
+    if "hupr_tpu_torch." + m in sys.modules:
+        print("NEW", "hupr_tpu_torch." + m)
 print("BAD", bad)
 """ % (BLOCKED,)
 
 
 def test_port_imports_no_jax_no_reference_package():
-    """Every module of the port, its CLI (hupr_tpu_torch.main) among them,
-    and chip_smoke.py import with JAX, the JAX package, PyYAML, tqdm, cv2,
+    """Every module of the port, its CLI (hupr_tpu_torch.main) and the
+    streaming, chunk-training and raw-ADC modules among them, and
+    chip_smoke.py import with JAX, the JAX package, PyYAML, tqdm, cv2,
     PIL, ml_dtypes and msgpack blocked."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
@@ -57,6 +61,8 @@ def test_port_imports_no_jax_no_reference_package():
     assert "MAIN True" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
     assert loaded >= 30, out.stdout
+    for module in ("data.adc", "engine.chunk_train", "engine.streaming"):
+        assert f"NEW hupr_tpu_torch.{module}" in out.stdout, out.stdout
 
 
 def test_port_sources_name_no_jax_or_reference_package():

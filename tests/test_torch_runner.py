@@ -323,23 +323,25 @@ def test_cli_trains_then_evaluates(tmp_path, monkeypatch):
 
 
 def test_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """chunk-mode training and raw-ADC sequence eval (ROADMAP A4) and
-    multi-host runs (A9) raise instead of running another path; with no
-    card and no request for the CPU, the Runner and the CLI raise."""
+    """Multi-host runs (ROADMAP A9) raise instead of running another path;
+    chunk-mode training and raw-ADC sequence eval (ported from A4) no
+    longer do; with no card and no request for the CPU, the Runner and
+    the CLI raise."""
     from hupr_tpu_torch import main as cli
+    from hupr_tpu_torch.config import fast_training_config
+    from hupr_tpu_torch.engine.runner import refuse_unported
 
     _, cfg = _workspace(tmp_path)
     monkeypatch.chdir(tmp_path)
     monkeypatch.delenv("HUPR_MULTIHOST", raising=False)
 
     cfg.TRAINING.chunkTrain = True
-    with pytest.raises(NotImplementedError, match="A4"):
-        Runner(_args("x"), cfg, device="cpu")
-    Runner(_args("x", True), cfg, device="cpu")     # eval reads no chunks
-    cfg.TRAINING.chunkTrain = False
     cfg.TEST.sequenceSource = "adc"
-    with pytest.raises(NotImplementedError, match="A4"):
-        Runner(_args("x", True), cfg, device="cpu")
+    assert Runner(_args("x"), cfg, device="cpu")._chunk_loader is not None
+    Runner(_args("x", True), cfg, device="cpu")     # eval reads no chunks
+    for eval_mode in (False, True):
+        refuse_unported(fast_training_config(), _args("x", eval_mode))
+    cfg.TRAINING.chunkTrain = False
     cfg.TEST.sequenceSource = "cubes"
 
     monkeypatch.setenv("HUPR_MULTIHOST", "1")
