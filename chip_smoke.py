@@ -56,8 +56,8 @@
    sequence of 32 raw int16 frames per view through the CUDA graph step,
    held against make_e2e_infer on the same frames (the lag and the flush
    applied) and against the eager step; stream_latency_ms of the graph and
-   the eager step as bench.py times it. Near the end, under the profiler:
-   a frame of each (the host's launch calls, the card's kernels) and the
+   the eager step as bench.py times it. After the float32 requests of 4,
+   as the process's first profiler run (card_trace): a frame of each (the host's launch calls, the card's kernels) and the
    sequence again, where the card's trace must show the 12 forward
    attention kernels in every replayed frame (a replay calls no wrapper,
    so the wrappers count only the eager steps and the capture).
@@ -69,7 +69,20 @@
    the chunk step against the classic step on the same windows, and three
    planted faults the first hold must catch; the chunk-mode epoch's rate
    (median of 8 epochs after a warm-up one) and raw-ADC eval's.
-13. Prints the `kernels` line (every kernel and mode), then ends with one
+13. The max-throughput recipe (max_training_config(),
+   config/mscsa_prgcn_tpu_max.yaml: the fast recipe at batch 128 with
+   MODEL.remat) as bench.py's train_max times it: the classic step on
+   bench.py's batch at 128 rows, with and without remat from the same
+   weights, in turns: 12 + 12 bf16 launches a step in both, the two held
+   together, remat's max_memory_allocated lower; ms/step, samples/s and
+   MFU of each; a profile of one step of each.
+14. The learning proofs at full width (tests/test_learning.py and
+   tests/test_learning_fast.py's data, batches and steps, at the recipes'
+   own lr): the flagship float32 recipe, and the fast recipe's chunk-mode
+   raw-ADC training and raw-ADC sequence eval in bfloat16, each through
+   the kernels and through the plain attention from the same
+   initialization, each to the JAX tests' loss bars and AP > 0.1.
+15. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -78,6 +91,7 @@ rest of the repository beside it.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -197,6 +211,16 @@ PROTOCOL_ATOL = 5e-3
 RUNNER_UPDATE_RTOL = 5e-2
 # runner_fast's chunk-mode epochs timed one by one after a warm-up epoch
 FAST_TIMED_EPOCHS = 8
+# train_max: config/mscsa_prgcn_tpu_max.yaml's batch, and the timed steps
+# per variant after the flop-counted first step
+MAX_BATCH, MAX_STEPS = 128, 3
+# the learning phases: the JAX tests' data, batches and steps
+# (tests/test_learning.py, tests/test_learning_fast.py), at the recipes'
+# own lr, 1e-4: the tests' 1e-3 and 3e-3 are set for numFilters 2, and at
+# numFilters 32 Adam there saturates the heatmaps (PERF.md section 6)
+LEARN_FRAMES, LEARN_BATCH, LEARN_STEPS = 8, 4, 150
+LEARN_FAST_FRAMES, LEARN_FAST_BATCH, LEARN_FAST_STEPS = 16, 12, 160
+LEARN_FAST_TEST_BATCH = 8
 
 # the stream phase: one sequence of raw frames per view (bench.py's
 # request), then stream_latency_ms as bench.py times it (3 warm-up frames,
@@ -752,6 +776,27 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
     return result, run, outs
 
 
+# idle seconds inside each torch.profiler window, before and after the work
+# it traces: once a process has profiled and then run unprofiled work on
+# the card, the profiler drops some of the card's events from later
+# windows, fewer of them with the card idle around the work
+TRACE_PAD_S = 0.25
+
+
+@contextlib.contextmanager
+def card_trace(torch, activities):
+    """torch.profiler over the body, the card idle and the window padded
+    by TRACE_PAD_S on both sides; yields the profiler."""
+    from torch.profiler import profile as torch_profile
+
+    torch.cuda.synchronize()
+    with torch_profile(activities=activities) as prof:
+        time.sleep(TRACE_PAD_S)
+        yield prof
+        torch.cuda.synchronize()
+        time.sleep(TRACE_PAD_S)
+
+
 def kernel_times(torch, prof):
     """(kernel name, device ms, calls) of each CUDA kernel a torch.profiler
     run saw, the longest first."""
@@ -781,11 +826,10 @@ def profile(torch, path: str, fn, top: int = 12):
     the device was busy (the union of its events' spans, so that work that
     overlaps on two streams counts once), and the device's idle share of
     the call's wall time."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    with card_trace(torch, [ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -801,16 +845,11 @@ def profile(torch, path: str, fn, top: int = 12):
 
 def bench_batch(torch, cfg):
     """bench.py's batch: N(0, 1) windows per view, joints uniform in
-    (20, 230), made on the card from a seed."""
-    t, ds = cfg.TRAINING, cfg.DATASET
-    gen = torch.Generator(device="cuda").manual_seed(3)
-    shape = (t.batchSize, ds.numGroupFrames, ds.numFrames, 2, ds.rangeSize,
-             ds.azimuthSize, ds.elevationSize)
-    return {"hori": torch.randn(shape, generator=gen, device="cuda"),
-            "vert": torch.randn(shape, generator=gen, device="cuda"),
-            "jointsGroup": 20 + 210 * torch.rand(
-                (t.batchSize, ds.numKeypoints, 2), generator=gen,
-                device="cuda", dtype=torch.float64)}
+    (20, 230), cfg.TRAINING.batchSize rows made on the card from seed 3
+    (utils/synthetic.synthetic_train_batch)."""
+    from hupr_tpu_torch.utils.synthetic import synthetic_train_batch
+
+    return synthetic_train_batch(cfg, cfg.TRAINING.batchSize, "cuda", seed=3)
 
 
 def projection_grads(torch, model):
@@ -1157,10 +1196,10 @@ def backward_passes(torch, reps: int = 3):
     """The backward's device ms per call in each of its passes (dq, dkdm),
     in each mode at each path shape, B=20, from torch.profiler over `reps`
     calls after a warm-up call: each pass's time over the launches the
-    profiler recorded (late in a process that has profiled before, it can
-    miss a call's kernels). It runs after every other timing, so that no
+    profiler recorded (late in a process that has profiled before, it
+    misses calls, card_trace's padding or not). It runs after every other timing, so that no
     time is taken under or after this profiler's hooks."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import ProfilerActivity
 
     from hupr_tpu_torch.ops.attention import attention_bwd, attention_fwd
     from hupr_tpu_torch.utils.device import float32_math
@@ -1174,11 +1213,9 @@ def backward_passes(torch, reps: int = 3):
             with torch.inference_mode(), float32_math():
                 o, lse = attention_fwd(k, q, m, with_lse=True, bf16_ops=ops)
                 attention_bwd(k, q, m, o, lse, g, bf16_ops=ops)
-                torch.cuda.synchronize()
-                with torch_profile(activities=[ProfilerActivity.CUDA]) as prof:
+                with card_trace(torch, [ProfilerActivity.CUDA]) as prof:
                     for _ in range(reps):
                         attention_bwd(k, q, m, o, lse, g, bf16_ops=ops)
-                    torch.cuda.synchronize()
             passes = {}
             for key, ms, count in kernel_times(torch, prof):
                 found = re.search(r"attention_bwd\w*", key)
@@ -1599,11 +1636,10 @@ def frame_launches(torch, step) -> dict:
     graph launch calls on the host, the kernels the card ran and how many
     of them were the forward attention kernel, the wall time and the time
     the card was busy."""
-    from torch.profiler import ProfilerActivity, profile as torch_profile
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with torch_profile(activities=[ProfilerActivity.CPU,
-                                   ProfilerActivity.CUDA]) as prof:
+    with card_trace(torch, [ProfilerActivity.CPU,
+                            ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         step()
         torch.cuda.synchronize()
@@ -1633,8 +1669,8 @@ def stream_phase(torch, card: str):
     warm-up frames, the packed fetch included) for the graph and the eager
     step. The wrappers count the eager steps (the first frame, the flush,
     the capture's warm-up step) and the capture, never a replay: the
-    kernels the replays ran are counted from the card's trace, late
-    (stream_launches). Returns the results by dtype and, for
+    kernels the replays ran are counted from the card's trace, by the
+    first profiler run (stream_launches). Returns the results by dtype and, for
     stream_launches, what it profiles: one more frame of each timed
     estimator and the main path's sequence again."""
     import numpy as np
@@ -1812,6 +1848,113 @@ def write_adc_sequence(torch, root: str, frames: int, seed: int = 0) -> str:
         with open(os.path.join(data, f"hrnet_annot_{phase}.json"), "w") as fp:
             json.dump([blocks], fp)
     return root
+
+
+def make_learnable_dataset(root: str, duration: int = 8, seed: int = 0):
+    """tests/test_learning.py's data, numpy only: cubes with a spike at
+    (range=y/4, azimuth=x/4) across all chirps and elevations, all 14
+    joints colocated at the frame's (x, y)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    os.makedirs(os.path.join(root, "single_1/hori"), exist_ok=True)
+    os.makedirs(os.path.join(root, "single_1/vert"), exist_ok=True)
+    blocks = []
+    for f in range(duration):
+        x = float(rng.uniform(48, 208))
+        y = float(rng.uniform(48, 208))
+        cube = (0.05 * (rng.standard_normal((16, 64, 64, 8))
+                        + 1j * rng.standard_normal((16, 64, 64, 8)))
+                ).astype(np.complex64)
+        cube[:, int(y / 4), int(x / 4), :] += 3.0 + 3.0j
+        np.save(os.path.join(root, f"single_1/hori/{f:09d}.npy"), cube)
+        np.save(os.path.join(root, f"single_1/vert/{f:09d}.npy"), cube)
+        blocks.append({"image": "%09d.jpg" % f, "joints": [[x, y]] * 14,
+                       "bbox": [x - 50, y - 50, x + 50, y + 50]})
+    for phase in ("train", "val", "test"):
+        with open(os.path.join(root, f"hrnet_annot_{phase}.json"), "w") as fp:
+            json.dump([blocks], fp)
+
+
+# tests/test_learning_fast.py's reduced capture geometry (32x32 cubes)
+LEARN_ADC_PARAMS = dict(num_adc_samples=128, num_chirp=96, idx_proc_chirp=32,
+                        num_group_chirp=2, range_gate_start=94)
+
+
+def point_target_frame(r_out: int, a_out: int, rp, amp: float = 300.0,
+                       doppler: int = 1):
+    """tests/test_learning_fast.py's point target, numpy only: one frame of
+    complex ADC (RX, num_chirp, num_adc) whose radar cube peaks at
+    (range_bin=r_out, azimuth_bin=a_out), on Doppler bin `doppler`, with a
+    Hamming taper across the 8-element virtual aperture."""
+    import numpy as np
+
+    nab = rp.num_angle_bins
+    kr = rp.range_gate_start - r_out
+    ka = (nab // 2 - 1 - a_out) % nab
+    t = np.arange(rp.num_adc_samples)
+    j = np.arange(rp.num_chirp)
+    rx = np.arange(rp.num_rx)
+    rng_ph = np.exp(2j * np.pi * kr * t / rp.num_adc_samples)
+    dop_ph = np.exp(2j * np.pi * doppler * (j // 3) / rp.idx_proc_chirp)
+    n = rx[:, None] + np.where(j % 3 == 0, 0,
+                               np.where(j % 3 == 1, 2, 4))[None, :]
+    ant_ph = np.exp(2j * np.pi * ka * n / nab)
+    ant_ph = ant_ph * (0.54 - 0.46 * np.cos(2 * np.pi * n / 7))
+    return (amp * ant_ph[:, :, None] * dop_ph[None, :, None]
+            * rng_ph[None, None, :])
+
+
+def serialize_dca1000(complex_data):
+    """(RX, chirps, ADC) complex -> the DCA1000's int16 stream (the
+    inverse of ops/dsp.decode_dca1000), numpy only."""
+    import numpy as np
+
+    i_flat = np.real(complex_data).transpose(1, 0, 2).reshape(-1)
+    q_flat = np.imag(complex_data).transpose(1, 0, 2).reshape(-1)
+    raw = np.zeros((i_flat.size // 2, 4), dtype=np.int16)
+    raw[:, 0] = i_flat[0::2]
+    raw[:, 1] = i_flat[1::2]
+    raw[:, 2] = q_flat[0::2]
+    raw[:, 3] = q_flat[1::2]
+    return raw.reshape(-1)
+
+
+def make_learnable_adc_dataset(root: str, rp, duration: int = 80,
+                               seed: int = 0, img_size: int = 128) -> str:
+    """tests/test_learning_fast.py's data, numpy only: point-target raw
+    captures (root/adc/single_1/{hori,vert}/adc_data.bin) with joints
+    colocated at the target, the horizontal view carrying y on its range
+    axis and x on its azimuth axis and the vertical view the transpose,
+    and annotations; no .npy cube. Returns the capture root."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    adc_dir = os.path.join(root, "adc")
+    frames_h, frames_v, blocks = [], [], []
+    for f in range(duration):
+        x = float(rng.uniform(24, img_size - 24))
+        y = float(rng.uniform(24, img_size - 24))
+        for sig, frames in ((point_target_frame(int(y / 4), int(x / 4), rp),
+                             frames_h),
+                            (point_target_frame(int(x / 4), int(y / 4), rp),
+                             frames_v)):
+            noise = (rng.integers(-10, 10, sig.shape)
+                     + 1j * rng.integers(-10, 10, sig.shape))
+            frames.append(np.round(sig.real) + 1j * np.round(sig.imag)
+                          + noise)
+        blocks.append({"image": "%09d.jpg" % f, "joints": [[x, y]] * 14,
+                       "bbox": [x - 25, y - 25, x + 25, y + 25]})
+    for view, frames in (("hori", frames_h), ("vert", frames_v)):
+        d = os.path.join(adc_dir, "single_1", view)
+        os.makedirs(d, exist_ok=True)
+        stream = np.concatenate([serialize_dca1000(fr) for fr in frames])
+        stream.tofile(os.path.join(d, "adc_data.bin"))
+    for phase in ("train", "val", "test"):
+        with open(os.path.join(root, f"hrnet_annot_{phase}.json"),
+                  "w") as fp:
+            json.dump([blocks], fp)
+    return adc_dir
 
 
 def fast_runner_config(root: str, compute: str = "bfloat16"):
@@ -2112,6 +2255,391 @@ def runner_fast_phase(torch, card: str):
         shutil.rmtree(root, ignore_errors=True)
 
 
+def train_max_phase(torch, card: str, peaks):
+    """bench.py's train_max protocol (bench.py:172-203) on the port:
+    max_training_config()'s classic train step (B=128, bfloat16, remat,
+    the kernels) on bench.py's N(0, 1) batch at 128 rows from N(0, 0.03)
+    weights (seed 0), against the same step with remat off from the same
+    weights, in turns on one card. The first step of each runs under
+    torch's flop counter (scripts/batch_sweep.step_flops: the recompute
+    counted, the kernels' FLOPs added); then MAX_STEPS timed steps each
+    with the counts zeroed just before and read just after: 12 + 12 bf16
+    launches a step in both (the recompute launches none). The two compute
+    the same math and on the card differ by cuDNN's non-deterministic
+    weight gradients, so it holds the losses of every step at
+    TRAIN_BARS['bf16'], every weight after the first step at PARAM_ATOL /
+    PARAM_RTOL, and after the last step the BN statistics at the bf16 bars
+    and num_batches_tracked exactly (a recompute that moved BN's buffers
+    would count every step twice). The weights after the last step are
+    read, not held: ~20k of the 35.5M weights get first-step gradients of
+    opposite signs in the two runs, and Adam moves each weight by up to lr
+    a step whatever its gradient's size, so two right runs drift apart by
+    up to 2 lr a step, past PARAM_ATOL from the third step on at lr 2.5e-4
+    (PERF.md section 6). remat's max_memory_allocated over its
+    steps must be lower. Returns the results and, for each variant, a
+    function that takes one more step."""
+    from hupr_tpu_torch.config import max_training_config
+    from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                             make_train_step)
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.scripts.batch_sweep import step_flops
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    cfgs = {"remat": max_training_config(), "no_remat": max_training_config()}
+    cfgs["no_remat"].MODEL.remat = False
+    cfg = cfgs["remat"]
+    t, ds = cfg.TRAINING, cfg.DATASET
+    if (t.batchSize, cfg.MODEL.computeDtype, cfg.MODEL.attention) != \
+            (MAX_BATCH, "bfloat16", "pallas"):
+        raise AssertionError(f"max recipe {t.batchSize} "
+                             f"{cfg.MODEL.computeDtype} "
+                             f"{cfg.MODEL.attention}")
+    geometry = (ds.numKeypoints, ds.heatmapSize, ds.imgSize)
+    batch = bench_batch(torch, cfg)
+    paths, weights = {}, None
+    for name, c in cfgs.items():
+        model = build_model(c)
+        if weights is None:
+            weights = synthetic_state_dict(model, seed=0, scale=0.03)
+        model.load_state_dict(weights, strict=True)
+        tx = make_optimizer(c, model)
+        paths[name] = {"state": TrainState(model, tx), "cfg": c,
+                       "step": make_train_step(model, tx, t.lossDecay,
+                                               geometry), "losses": []}
+    del weights
+
+    def flat_params(p):
+        return torch.cat([v.detach().flatten()
+                          for v in p["state"].model.parameters()])
+
+    first = {}
+    for name, p in paths.items():       # the first step, FLOPs counted
+        p["state"], metrics, p["flops"] = step_flops(
+            p["cfg"], p["step"], p["state"], batch, t.lr)
+        p["losses"].append(metrics["loss"])
+        first[name] = flat_params(p)
+    first_excess = allclose_excess(first["remat"], first["no_remat"],
+                                   PARAM_ATOL, PARAM_RTOL)
+    first_err = (first["remat"] - first["no_remat"]).abs().max().item()
+    del first
+
+    timing = {}
+    for name, p in paths.items():       # in turns on one card
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        attention.reset_launch_counts()
+        t0 = time.perf_counter()
+        for _ in range(MAX_STEPS):
+            p["state"], metrics = p["step"](p["state"], batch, t.lr, 0.0)
+            p["losses"].append(metrics["loss"])
+        torch.cuda.synchronize()
+        timing[name] = {"seconds": time.perf_counter() - t0,
+                        "by_mode": wrapper_launches(attention),
+                        "peak": torch.cuda.max_memory_allocated(),
+                        "resident": resident}
+    want = {"attention_fwd": {"bf16": 12 * MAX_STEPS},
+            "attention_bwd": {"bf16": 12 * MAX_STEPS},
+            "attention_fwd_unfolded": {}}
+    losses = {name: [x.item() for x in p["losses"]]
+              for name, p in paths.items()}
+    loss_rel = max(abs(a - b) / abs(b)
+                   for a, b in zip(losses["remat"], losses["no_remat"]))
+    bufs, bufs_x = ({k: v for k, v in p["state"].model.named_buffers()}
+                    for p in paths.values())
+    stats = [k for k, v in bufs.items() if v.is_floating_point()]
+    counts_equal = all(torch.equal(bufs[k], bufs_x[k]) for k in bufs
+                       if k not in stats)
+    bars = TRAIN_BARS["bf16"]
+    stats_excess = max(allclose_excess(bufs[k], bufs_x[k], *bars["stats"])
+                       for k in stats)
+    stats_err = max((bufs[k] - bufs_x[k]).abs().max().item() for k in stats)
+    last_excess = allclose_excess(*(flat_params(p) for p in paths.values()),
+                                  PARAM_ATOL, PARAM_RTOL)
+    result = {"card": card, "batch": MAX_BATCH, "steps": 1 + MAX_STEPS,
+              "timed_steps": MAX_STEPS, "compute_dtype": "bfloat16"}
+    for name in paths:
+        sfx = "" if name == "remat" else "_no_remat"
+        ms = 1e3 * timing[name]["seconds"] / MAX_STEPS
+        flops = paths[name]["flops"]
+        result |= {
+            f"train_max_ms_per_step{sfx}": ms,
+            f"train_max_samples_per_sec{sfx}": 1e3 * MAX_BATCH / ms,
+            f"train_max_tflops_per_step{sfx}": flops / 1e12,
+            f"train_max_mfu_vs_bf16_peak{sfx}":
+                flops / (ms / 1e3) / peaks["bf16"],
+            f"max_memory_allocated{sfx}": timing[name]["peak"],
+            f"memory_allocated_before_steps{sfx}": timing[name]["resident"],
+            f"launches_by_mode{sfx}": timing[name]["by_mode"],
+            f"losses{sfx}": losses[name]}
+    fwd = timing["remat"]["by_mode"]["attention_fwd"].get("bf16", 0)
+    bwd = timing["remat"]["by_mode"]["attention_bwd"].get("bf16", 0)
+    result |= {"bf16_peak_tflops": peaks["bf16"] / 1e12,
+               "loss_max_rel_err_vs_no_remat": loss_rel,
+               "param_max_abs_err_after_first_step": first_err,
+               "param_allclose_excess_after_first_step": first_excess,
+               "param_allclose_excess_after_last_step_read": last_excess,
+               "bn_stats_max_abs_err_vs_no_remat": stats_err,
+               "bn_stats_allclose_excess": stats_excess,
+               "bn_counts_equal": counts_equal,
+               "attention_fwd_launches": fwd, "attention_bwd_launches": bwd}
+    print(json.dumps({"train_max": result}), flush=True)
+    del bufs, bufs_x
+    for name in timing:
+        if timing[name]["by_mode"] != want:
+            raise AssertionError(f"train_max {name} launched "
+                                 f"{timing[name]['by_mode']}; expected "
+                                 f"{want}")
+    if not all(map(math.isfinite, losses["remat"] + losses["no_remat"])):
+        raise AssertionError(f"non-finite train_max losses {losses}")
+    if not loss_rel <= bars["loss_rtol"]:
+        raise AssertionError(f"train_max losses differ from the step "
+                             f"without remat by {loss_rel} relative > "
+                             f"{bars['loss_rtol']}")
+    if not first_excess <= 0:
+        raise AssertionError(f"after the first step, weights differ from "
+                             f"the step without remat by up to {first_err}")
+    if not (stats_excess <= 0 and counts_equal):
+        raise AssertionError(f"after the steps, BN statistics differ from "
+                             f"the step without remat by up to {stats_err},"
+                             f" num_batches_tracked equal: {counts_equal}")
+    if not result["max_memory_allocated"] < \
+            result["max_memory_allocated_no_remat"]:
+        raise AssertionError(
+            f"remat's max_memory_allocated {result['max_memory_allocated']}"
+            f" is not under the step's without remat "
+            f"{result['max_memory_allocated_no_remat']}")
+    return result, {name: (lambda p=p: p["step"](p["state"], batch, t.lr,
+                                                 0.0))
+                    for name, p in paths.items()}
+
+
+def learn_run(torch, cfg, state, step, epoch, steps: int, lr: float,
+              runner_dir: str, eval_step=None, eval_batches=None):
+    """`steps` SGD steps of `step` from `state` over epoch after epoch of
+    batches (`epoch()` returns one epoch's iterator), then
+    the Runner's eval of the test split on the trained weights (main.run's
+    eval flow: sequence eval, from raw ADC where cfg asks for it); with
+    `eval_step`, the decoded pixel error on `eval_batches` as
+    tests/test_learning.py reads it. The kernel counts are zeroed just
+    before the steps and read after them and after the evals. Returns the
+    readings."""
+    import itertools
+
+    import numpy as np
+
+    from hupr_tpu_torch.engine.runner import Runner
+    from hupr_tpu_torch.ops import attention
+
+    epochs = itertools.chain.from_iterable(
+        epoch() for _ in itertools.count())
+    losses = []
+    attention.reset_launch_counts()
+    t0 = time.perf_counter()
+    for batch in itertools.islice(epochs, steps):
+        state, metrics = step(state, batch, lr, 0.0)
+        losses.append(metrics["loss"])
+    losses = [x.item() for x in losses]
+    out = {"first_loss": losses[0], "last_loss": losses[-1],
+           "steps": len(losses), "train_s": time.perf_counter() - t0,
+           "train_launches": wrapper_launches(attention)}
+    if eval_step is not None:
+        errs = []
+        for b in eval_batches:
+            pred = eval_step(state, b)["pred2d"].cpu().numpy() * 4.0
+            errs.append(np.abs(pred - b["jointsGroup"].cpu().numpy()).mean())
+        out["pixel_error"] = float(np.mean(errs))
+    runner = Runner(runner_args(runner_dir, True), cfg)
+    runner.model.load_state_dict(state.model.state_dict())
+    out["ap"] = runner.eval(visualization=False)
+    out["sequence_eval"] = runner._seq_eval is not None
+    out["sequence_eval_adc"] = out["sequence_eval"] and \
+        runner._seq_eval.adc is not None
+    out["launches"] = wrapper_launches(attention)
+    out["losses"] = losses
+    return out
+
+
+def check_learning(card: str, label: str, results: dict, mode: str,
+                   steps: int, loss_ratio: float, pixel_bar=None) -> dict:
+    """Prints the `label` line of a learning phase's runs (attention ->
+    learn_run readings) and holds each run to its bars: finite losses,
+    last < loss_ratio x first, AP > 0.1, the pixel error under
+    `pixel_bar` where given; 12 forward and 12 backward launches a step in
+    `mode` through the kernels and more forward launches in its eval, none
+    through xla. Returns the line's object."""
+    line = {"card": card}
+    for attn, r in results.items():
+        line[attn] = {k: v for k, v in r.items() if k != "losses"}
+        line[attn]["losses_every_10th"] = r["losses"][::10]
+    print(json.dumps({label: line}), flush=True)
+    for attn, r in results.items():
+        want = {"attention_fwd": {mode: 12 * steps},
+                "attention_bwd": {mode: 12 * steps},
+                "attention_fwd_unfolded": {}} if attn == "pallas" else \
+            {"attention_fwd": {}, "attention_bwd": {},
+             "attention_fwd_unfolded": {}}
+        evals = r["launches"]["attention_fwd"].get(mode, 0) - \
+            want["attention_fwd"].get(mode, 0)
+        if r["train_launches"] != want or (attn == "pallas" and evals <= 0) \
+                or (attn == "xla" and r["launches"] != want) or \
+                r["launches"]["attention_bwd"] != want["attention_bwd"]:
+            raise AssertionError(f"{label} {attn}: launched "
+                                 f"{r['train_launches']} in training, "
+                                 f"{r['launches']} in all; expected {want} "
+                                 f"and more forward launches in the eval")
+        if not (math.isfinite(r["last_loss"]) and r["steps"] == steps
+                and r["last_loss"] < loss_ratio * r["first_loss"]):
+            raise AssertionError(f"{label} {attn}: losses {r['first_loss']}"
+                                 f" -> {r['last_loss']} over {r['steps']} "
+                                 f"steps; the bar is < {loss_ratio} x first")
+        if pixel_bar is not None and not r["pixel_error"] < pixel_bar:
+            raise AssertionError(f"{label} {attn}: pixel error "
+                                 f"{r['pixel_error']} >= {pixel_bar}")
+        if not r["ap"] > 0.1:
+            raise AssertionError(f"{label} {attn}: AP {r['ap']} <= 0.1")
+    return line
+
+
+def learn_phase(torch, card: str):
+    """tests/test_learning.py's recipe at full width through the kernels:
+    flagship_training_config() (numFilters 32, 64x64 maps, float32) on
+    make_learnable_dataset's LEARN_FRAMES frames, batch LEARN_BATCH,
+    LEARN_STEPS Adam steps at the recipe's lr (1e-4) from the port's own
+    initialization (torch's defaults, seed 0), then the decoded pixel
+    error on the train windows and the Runner's AP (sequence eval); again
+    from the same weights through MODEL.attention xla. Each run must clear
+    the JAX test's bars: last loss < 0.5 x first, pixel error < 25, AP >
+    0.1.
+    Returns the `learn` line."""
+    import shutil
+    import tempfile
+
+    from hupr_tpu_torch.config import flagship_training_config
+    from hupr_tpu_torch.data.dataset import BatchLoader, get_dataset
+    from hupr_tpu_torch.engine.steps import (TrainState, make_eval_step,
+                                             make_optimizer, make_train_step)
+    from hupr_tpu_torch.models.hupr import build_model
+
+    root = tempfile.mkdtemp(prefix="hupr_learn_")
+    cwd = os.getcwd()
+    try:
+        data_dir = os.path.join(root, "data")
+        make_learnable_dataset(data_dir, LEARN_FRAMES)
+        os.chdir(root)
+        torch.manual_seed(0)
+        weights = build_model(flagship_training_config(),
+                              "cpu").state_dict()
+        results = {}
+        for attn in ("pallas", "xla"):
+            cfg = flagship_training_config()
+            d = cfg.DATASET
+            d.dataDir, d.duration = data_dir, LEARN_FRAMES
+            d.trainName = d.valName = d.testName = [1]
+            cfg.MODEL.attention = attn
+            cfg.TRAINING.batchSize = cfg.TEST.batchSize = LEARN_BATCH
+            cfg.TRAINING.epochs = 1
+            geometry = (d.numKeypoints, d.heatmapSize, d.imgSize)
+            batches = [{k: torch.as_tensor(b[k], device="cuda")
+                        for k in ("hori", "vert", "jointsGroup")}
+                       for b in BatchLoader(get_dataset("train", cfg),
+                                            LEARN_BATCH)]
+            model = build_model(cfg)
+            model.load_state_dict(weights)
+            tx = make_optimizer(cfg, model)
+            results[attn] = learn_run(
+                torch, cfg, TrainState(model, tx),
+                make_train_step(model, tx, geometry=geometry),
+                lambda: iter(batches), LEARN_STEPS, cfg.TRAINING.lr,
+                f"learn_{attn}", make_eval_step(model, geometry=geometry),
+                batches)
+            del batches, model, tx
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return check_learning(card, "learn", results, "f32", LEARN_STEPS, 0.5,
+                          pixel_bar=25.0)
+
+
+def learn_fast_phase(torch, card: str):
+    """tests/test_learning_fast.py's recipe at numFilters 32 through the
+    kernels: fast_training_config() (bfloat16 compute and wire, chunk-mode
+    training from raw ADC, raw-ADC sequence eval) on
+    make_learnable_adc_dataset's LEARN_FAST_FRAMES point-target captures
+    at that test's 32x32 geometry (LEARN_ADC_PARAMS), chunk batch
+    LEARN_FAST_BATCH, LEARN_FAST_STEPS Adam steps at the recipe's lr (a
+    reshuffled epoch of chunks after another) from the port's own
+    initialization (torch's defaults, seed 0), then the Runner's raw-ADC
+    sequence eval; again from the same weights through MODEL.attention
+    xla. The kernels take C in {64, 128, 256}, so the width stays 32 where
+    the CPU test runs 2. Each run must clear the JAX test's bars: last
+    loss < 0.2 x first, AP > 0.1. Returns the `learn_fast` line."""
+    import shutil
+    import tempfile
+
+    from hupr_tpu_torch.config import fast_training_config
+    from hupr_tpu_torch.data.adc import ADCFrameSource
+    from hupr_tpu_torch.data.dataset import get_dataset
+    from hupr_tpu_torch.engine.chunk_train import (ADCChunkLoader,
+                                                   device_put_chunk,
+                                                   make_adc_chunk_train_step)
+    from hupr_tpu_torch.engine.steps import TrainState, make_optimizer
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops.dsp import RadarParams
+
+    def config(attn):
+        cfg = fast_training_config()
+        d = cfg.DATASET
+        d.dataDir, d.adcDir = data_dir, adc_dir
+        d.adcParams, d.duration = dict(LEARN_ADC_PARAMS), LEARN_FAST_FRAMES
+        d.trainName = d.valName = d.testName = [1]
+        d.rangeSize = d.azimuthSize = d.heatmapSize = 32
+        d.imgSize = 128
+        cfg.MODEL.attention = attn
+        t = cfg.TRAINING
+        t.batchSize, t.epochs = LEARN_FAST_BATCH, 1
+        cfg.TEST.batchSize = LEARN_FAST_TEST_BATCH
+        return cfg
+
+    root = tempfile.mkdtemp(prefix="hupr_learn_fast_")
+    cwd = os.getcwd()
+    try:
+        data_dir = os.path.join(root, "data")
+        os.makedirs(data_dir)
+        rp = RadarParams(**LEARN_ADC_PARAMS)
+        adc_dir = make_learnable_adc_dataset(data_dir, rp, LEARN_FAST_FRAMES)
+        os.chdir(root)
+        torch.manual_seed(0)
+        weights = build_model(config("pallas"), "cpu").state_dict()
+        results = {}
+        for attn in ("pallas", "xla"):
+            cfg = config(attn)
+            d = cfg.DATASET
+            if d.radar_params() != rp:
+                raise AssertionError("learn_fast: capture geometry")
+            loader = ADCChunkLoader(get_dataset("train", cfg),
+                                    LEARN_FAST_BATCH,
+                                    ADCFrameSource(adc_dir, rp), seed=0,
+                                    shuffle=True)
+            model = build_model(cfg)
+            model.load_state_dict(weights)
+            tx = make_optimizer(cfg, model)
+            step = make_adc_chunk_train_step(
+                model, tx, (d.numKeypoints, d.heatmapSize, d.imgSize),
+                radar_params=rp, num_frames=d.numFrames)
+            results[attn] = learn_run(
+                torch, cfg, TrainState(model, tx), step,
+                lambda: (device_put_chunk(b)[0] for b in loader),
+                LEARN_FAST_STEPS, cfg.TRAINING.lr, f"learn_fast_{attn}")
+            del loader, model, tx, step
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    return check_learning(card, "learn_fast", results, "bf16",
+                          LEARN_FAST_STEPS, 0.2)
+
+
 def kernel_entry(name, mode, source, replaces, launches, rows, scale, per,
                  **extra):
     """One object of the `kernels` line: times and bounds summed over
@@ -2181,6 +2709,9 @@ def main() -> int:
                                     device="cuda", dtype=torch.int16)
                       for _ in range(4)) for _ in range(REQUESTS)]
     sl, run, outs_f32 = serve_slice(torch, requests, smi)
+    # the first profiler run: later ones drop some of the card's events
+    stream_launches(torch, st, stream_frames)
+    del stream_frames
     profile(torch, "serve", lambda: run(*requests[0]))
     del run
     sl16, run, _ = serve_slice(torch, requests, smi, fast_serving_config(),
@@ -2203,8 +2734,14 @@ def main() -> int:
     micro_rows, micro_launches, _ = microbench_phase(torch, peaks)
     rr = runner_phase(torch, smi)
     rf = runner_fast_phase(torch, smi)
-    stream_launches(torch, st, stream_frames)
-    del stream_frames
+    tm, one_step = train_max_phase(torch, smi, peaks)
+    # the recompute beside the step without it
+    profile(torch, "train_max", one_step["remat"], top=30)
+    profile(torch, "train_max_no_remat", one_step["no_remat"], top=30)
+    del one_step
+    torch.cuda.empty_cache()
+    ln = learn_phase(torch, smi)
+    lf = learn_fast_phase(torch, smi)
     backward_passes(torch)
 
     shapes = "4 at each (N, C) of (256, 256), (1024, 128), (4096, 64)"
@@ -2228,6 +2765,8 @@ def main() -> int:
                      {"serve": sl["attention_launches"],
                       "train": tr["attention_fwd_launches"],
                       "runner": rr["launches"]["attention_fwd"],
+                      "learn":
+                          ln["pallas"]["launches"]["attention_fwd"]["f32"],
                       "stream":
                           st["f32"]["sequence_wrapper_launches"]["f32"]},
                      rows, 4, per_request, stream_B1=b1("f32"),
@@ -2241,7 +2780,9 @@ def main() -> int:
                                         for key, name in lse_keys.items()}),
         kernel_entry("attention_bwd", "f32", "attention_bwd", bwd_src,
                      {"serve": 0, "train": tr["attention_bwd_launches"],
-                      "runner": rr["launches"]["attention_bwd"]},
+                      "runner": rr["launches"]["attention_bwd"],
+                      "learn":
+                          ln["pallas"]["launches"]["attention_bwd"]["f32"]},
                      bwd_rows, 4, per_step,
                      body="attention_bwd_dq_tf32, attention_bwd_dkdm_tf32 "
                           "(3xTF32 on mma.sync, csrc/tf32.cuh)",
@@ -2256,9 +2797,15 @@ def main() -> int:
                             "train_bf16": tr16["attention_fwd_launches"],
                             "stream_bf16": st["bf16"][
                                 "sequence_wrapper_launches"]["bf16"],
-                            "runner_fast": fast["attention_fwd"]["bf16"]}
+                            "runner_fast": fast["attention_fwd"]["bf16"],
+                            "train_max": tm["attention_fwd_launches"],
+                            "learn_fast": lf["pallas"]["launches"][
+                                "attention_fwd"]["bf16"]}
             bwd_launches = {"train_bf16": tr16["attention_bwd_launches"],
-                            "runner_fast": fast["attention_bwd"]["bf16"]}
+                            "runner_fast": fast["attention_bwd"]["bf16"],
+                            "train_max": tm["attention_bwd_launches"],
+                            "learn_fast": lf["pallas"]["launches"][
+                                "attention_bwd"]["bf16"]}
             extra["stream_B1"] = b1("bf16")
             extra["stream_traced"] = \
                 st["bf16"]["traced_attention_fwd_kernels"]

@@ -256,3 +256,14 @@ def fast_training_config() -> Config:
     cfg.TRAINING.chunkTrain = True
     cfg.TRAINING.chunkSource = "adc"
     return cfg
+
+
+def max_training_config() -> Config:
+    """`config/mscsa_prgcn_tpu_max.yaml` built without PyYAML: the fast
+    recipe (fast_training_config()) with MODEL.remat, batch 128 and lr
+    2.5e-4. The split lists are left empty."""
+    cfg = fast_training_config()
+    cfg.MODEL.remat = True
+    cfg.TRAINING.batchSize = 128
+    cfg.TRAINING.lr = 2.5e-4
+    return cfg

@@ -18,9 +18,21 @@ float32 parameters and statistics and returns the input's dtype; torch's
 own BN normalizes a bfloat16 input in float32 and rounds once, where the JAX
 package rounds after each of its four elementwise steps (the tests bound the
 difference).
+
+Under MODEL.remat (models/hupr.py) a checkpointed module's forward runs a
+second time in the backward. torch's train-mode BN would then move its
+running statistics and `num_batches_tracked` twice, where flax's remat is
+functional and moves them once. So the BN here is `BatchNorm2d` /
+`BatchNorm3d`, which inside `recomputing()` normalizes with the batch
+statistics as before but writes its running-statistics update into
+throwaway copies: the rebuilt forward is the same call on the same values,
+and the buffers keep the first forward's update alone.
 """
 
 from __future__ import annotations
+
+import contextlib
+import threading
 
 import torch
 import torch.nn.functional as F
@@ -59,13 +71,50 @@ class PReLU(nn.PReLU):
         return F.prelu(x, self.weight.to(x.dtype))
 
 
+_RECOMPUTE = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """The recompute of a checkpointed forward, in this thread (the card's
+    backward runs on autograd's own thread, which enters this context
+    around the recompute: torch.utils.checkpoint's `context_fn`)."""
+    before = getattr(_RECOMPUTE, "active", False)
+    _RECOMPUTE.active = True
+    try:
+        yield
+    finally:
+        _RECOMPUTE.active = before
+
+
+class _RecomputeAwareBN:
+    """BatchNormNd that leaves its buffers alone inside `recomputing()`."""
+
+    def forward(self, x):
+        if not (self.training and getattr(_RECOMPUTE, "active", False)):
+            return super().forward(x)
+        # the first forward's call (batch statistics, momentum) on copies
+        # of the buffers: the same saved tensors, the same output
+        return F.batch_norm(x, self.running_mean.clone(),
+                            self.running_var.clone(), self.weight, self.bias,
+                            True, self.momentum, self.eps)
+
+
+class BatchNorm2d(_RecomputeAwareBN, nn.BatchNorm2d):
+    pass
+
+
+class BatchNorm3d(_RecomputeAwareBN, nn.BatchNorm3d):
+    pass
+
+
 class BasicBlock(nn.Module):
     def __init__(self, in_channels: int, out_channels: int, ndim: int,
                  batchnorm: bool = True, activation: str = "relu",
                  compute_dtype: torch.dtype = torch.float32):
         super().__init__()
         conv = {2: Conv2d, 3: Conv3d}[ndim]
-        norm = {2: nn.BatchNorm2d, 3: nn.BatchNorm3d}[ndim]
+        norm = {2: BatchNorm2d, 3: BatchNorm3d}[ndim]
         act = {"relu": nn.ReLU, "prelu": PReLU}[activation]
 
         def c3(cin, cout):

@@ -29,3 +29,19 @@ def synthetic_state_dict(model: nn.Module, seed: int = 0,
             x = np.abs(x) + 1.0
         out[key] = torch.from_numpy(x)
     return out
+
+
+def synthetic_train_batch(cfg, batch_size: int, device,
+                          seed: int = 0) -> dict:
+    """A train batch of `cfg`'s geometry drawn on `device` from `seed`, as
+    bench.py draws its batch: N(0, 1) raw windows per view, joints uniform
+    in (20, 230)."""
+    ds = cfg.DATASET
+    gen = torch.Generator(device=device).manual_seed(seed)
+    shape = (batch_size, ds.numGroupFrames, ds.numFrames, 2, ds.rangeSize,
+             ds.azimuthSize, ds.elevationSize)
+    return {"hori": torch.randn(shape, generator=gen, device=device),
+            "vert": torch.randn(shape, generator=gen, device=device),
+            "jointsGroup": 20 + 210 * torch.rand(
+                (batch_size, ds.numKeypoints, 2), generator=gen,
+                device=device, dtype=torch.float64)}

@@ -225,6 +225,63 @@ def test_train_step_on_card(cuda):
     np.testing.assert_allclose(losses["pallas"], losses["xla"], rtol=2e-4)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_remat_step_on_card(cuda, dtype):
+    """MODEL.remat on the card at the kernels' widths (numFilters 32) on
+    16x16 maps: one step with remat and one without from the same weights,
+    12 forward and 12 backward launches each (the recompute launches
+    none), losses, weights and BN statistics at the train slices' bars
+    (chip_smoke.TRAIN_BARS, PARAM_ATOL / PARAM_RTOL) and
+    num_batches_tracked equal."""
+    import numpy as np
+
+    from hupr_tpu_torch.config import config_from_dict
+    from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                             make_train_step)
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    smoke = _chip_smoke()
+    bars = smoke.TRAIN_BARS["f32" if dtype == "float32" else "bf16"]
+    h, b = 16, 2
+    rng = np.random.default_rng(1)
+    shape = (b, 8, 8, 2, h, h, 8)
+    batch = {"hori": rng.standard_normal(shape).astype(np.float32),
+             "vert": rng.standard_normal(shape).astype(np.float32),
+             "jointsGroup": rng.uniform(4, 4 * h - 4, (b, 14, 2))}
+    models, losses, weights = {}, {}, None
+    for remat in (False, True):
+        cfg = config_from_dict({
+            "DATASET": {"rangeSize": h, "azimuthSize": h, "heatmapSize": h,
+                        "imgSize": 4 * h},
+            "MODEL": {"attention": "pallas", "computeDtype": dtype,
+                      "remat": remat}})
+        model = build_model(cfg, device=cuda)
+        if weights is None:
+            weights = synthetic_state_dict(model, seed=0, scale=0.03)
+        model.load_state_dict(weights, strict=True)
+        tx = make_optimizer(cfg, model)
+        step = make_train_step(model, tx, -1.0, (14, h, 4 * h))
+        before = attention_fwd.launches, attention_bwd.launches
+        _, metrics = step(TrainState(model, tx), batch, 1e-4, 0.0)
+        assert (attention_fwd.launches - before[0],
+                attention_bwd.launches - before[1]) == (12, 12)
+        models[remat], losses[remat] = model, metrics["loss"].item()
+    assert math.isfinite(losses[True])
+    assert abs(losses[True] - losses[False]) <= \
+        bars["loss_rtol"] * abs(losses[False])
+    for (key, a), c in zip(models[False].state_dict().items(),
+                           models[True].state_dict().values()):
+        if not a.is_floating_point():
+            assert torch.equal(a, c), key
+        elif key.endswith(("running_mean", "running_var")):
+            torch.testing.assert_close(c, a, atol=bars["stats"][0],
+                                       rtol=bars["stats"][1], msg=key)
+        else:
+            torch.testing.assert_close(c, a, atol=smoke.PARAM_ATOL,
+                                       rtol=smoke.PARAM_RTOL, msg=key)
+
+
 # ------------------------------------------------------------ bfloat16 modes
 
 # (input dtype, bf16_ops) of the three modes beside full float32
@@ -503,13 +560,12 @@ def test_attention_fwd_b1_matches_plain(cuda, n, c, mode):
 
 def _traced_attention_kernels(fn):
     """(fn(), the forward attention kernels the card ran in it, from
-    torch.profiler's device events)."""
-    from torch.profiler import ProfilerActivity, profile
+    torch.profiler's device events), the window padded as
+    chip_smoke.card_trace pads it."""
+    from torch.profiler import ProfilerActivity
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with _chip_smoke().card_trace(torch, [ProfilerActivity.CUDA]) as prof:
         out = fn()
-        torch.cuda.synchronize()
     return out, sum(1 for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and ("::attention_fwd_tf32<" in e.name

@@ -41,7 +41,8 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", len([m for m in sys.modules if m.startswith("hupr_tpu_torch")]))
 print("MAIN", "hupr_tpu_torch.main" in sys.modules)
-for m in ("data.adc", "engine.chunk_train", "engine.streaming"):
+for m in ("data.adc", "engine.chunk_train", "engine.streaming",
+          "scripts.remat_memory", "scripts.batch_sweep"):
     if "hupr_tpu_torch." + m in sys.modules:
         print("NEW", "hupr_tpu_torch." + m)
 print("BAD", bad)
@@ -50,9 +51,9 @@ print("BAD", bad)
 
 def test_port_imports_no_jax_no_reference_package():
     """Every module of the port, its CLI (hupr_tpu_torch.main) and the
-    streaming, chunk-training and raw-ADC modules among them, and
-    chip_smoke.py import with JAX, the JAX package, PyYAML, tqdm, cv2,
-    PIL, ml_dtypes and msgpack blocked."""
+    streaming, chunk-training and raw-ADC modules and the remat_memory and
+    batch_sweep scripts among them, and chip_smoke.py import with JAX, the
+    JAX package, PyYAML, tqdm, cv2, PIL, ml_dtypes and msgpack blocked."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
@@ -61,7 +62,8 @@ def test_port_imports_no_jax_no_reference_package():
     assert "MAIN True" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
     assert loaded >= 30, out.stdout
-    for module in ("data.adc", "engine.chunk_train", "engine.streaming"):
+    for module in ("data.adc", "engine.chunk_train", "engine.streaming",
+                   "scripts.remat_memory", "scripts.batch_sweep"):
         assert f"NEW hupr_tpu_torch.{module}" in out.stdout, out.stdout
 
 
@@ -126,7 +128,6 @@ def test_entry_points_refuse_silent_cpu(monkeypatch):
     ("attention", "pallas_fp8", ValueError),
     ("computeDtype", "float16", ValueError),
     ("attention", "flash", ValueError),
-    ("remat", True, NotImplementedError),
 ])
 def test_unported_model_options_raise(field, value, exc):
     from hupr_tpu_torch.models.hupr import build_model
