@@ -82,7 +82,15 @@
    raw-ADC training and raw-ADC sequence eval in bfloat16, each through
    the kernels and through the plain attention from the same
    initialization, each to the JAX tests' loss bars and AP > 0.1.
-15. Prints the `kernels` line (every kernel and mode), then ends with one
+15. The radar's two ends on one synthetic full-geometry capture per view
+   (64 frames): the preprocessing CLI's RadarPreprocessor makes the cubes
+   on the card (held against the CPU's and the NumPy oracle's); the parity
+   audit's body scores them with a seeded flagship model_best.pth (exit
+   codes 2, 0 and 1, its AP equal to Runner.eval's); live serving's body
+   serves the same captures replayed over loopback UDP through the C++
+   reassembler (every byte, no resync, the poses held against the
+   estimator fed the captures directly). No profiler runs here.
+16. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -221,6 +229,13 @@ MAX_BATCH, MAX_STEPS = 128, 3
 LEARN_FRAMES, LEARN_BATCH, LEARN_STEPS = 8, 4, 150
 LEARN_FAST_FRAMES, LEARN_FAST_BATCH, LEARN_FAST_STEPS = 16, 12, 160
 LEARN_FAST_TEST_BATCH = 8
+# the front_end phase: one synthetic full-geometry capture per view (HuPR's
+# are 600 frames), the preprocessor's batch (its CLI's default), and the
+# cubes' bars, relative to the cube's peak: card against CPU (FFT libraries
+# differ in the last bits), and tests/test_preprocess.py's bar against the
+# NumPy oracle
+FRONT_FRAMES, FRONT_BATCH, FRONT_SEED = 64, 30, 12
+CUBE_PEAK_REL, ORACLE_PEAK_REL = 1e-5, 1e-4
 
 # the stream phase: one sequence of raw frames per view (bench.py's
 # request), then stream_latency_ms as bench.py times it (3 warm-up frames,
@@ -1285,8 +1300,8 @@ def runner_args(dir_name: str, eval_mode: bool = False):
                               keypoints=False)
 
 
-def seed_checkpoint(cfg, dir_name: str) -> None:
-    """./logs/<dir_name>/checkpoint.pth: seeded N(0, 0.03) weights (see
+def seed_checkpoint(cfg, dir_name: str, name: str = "checkpoint.pth"):
+    """./logs/<dir_name>/<name>: seeded N(0, 0.03) weights (see
     serve_slice), an optimizer that has taken no step, epoch 0."""
     from hupr_tpu_torch.engine.checkpoint import snapshot, write_checkpoint
     from hupr_tpu_torch.engine.steps import make_optimizer
@@ -1296,7 +1311,7 @@ def seed_checkpoint(cfg, dir_name: str) -> None:
     model = build_model(cfg, device="cpu")
     model.load_state_dict(synthetic_state_dict(model, seed=0, scale=0.03))
     os.makedirs(os.path.join("logs", dir_name), exist_ok=True)
-    write_checkpoint(os.path.join("logs", dir_name, "checkpoint.pth"),
+    write_checkpoint(os.path.join("logs", dir_name, name),
                      snapshot(model, make_optimizer(cfg, model), 0, -1.0))
 
 
@@ -1840,6 +1855,17 @@ def write_adc_sequence(torch, root: str, frames: int, seed: int = 0) -> str:
             cube[rp.num_kept_chirps // 2] = 0
             np.save(os.path.join(data, "single_1", view, f"{f:09d}.npy"),
                     cube.cpu().numpy())
+    write_annotations(data, frames, seed)
+    return root
+
+
+def write_annotations(data: str, frames: int, seed: int = 0) -> None:
+    """Annotations of one sequence (single_1) of `frames` frames for the
+    train, val and test splits under `data`, as write_sequence makes them:
+    joints uniform in (40, 210) of a 256-pixel image, every GT box
+    1500x1500."""
+    import numpy as np
+
     rng = np.random.default_rng(seed)
     blocks = [{"image": f"{f:09d}.jpg",
                "joints": rng.uniform(40, 210, (14, 2)).tolist(),
@@ -1847,7 +1873,6 @@ def write_adc_sequence(torch, root: str, frames: int, seed: int = 0) -> str:
     for phase in ("train", "val", "test"):
         with open(os.path.join(data, f"hrnet_annot_{phase}.json"), "w") as fp:
             json.dump([blocks], fp)
-    return root
 
 
 def make_learnable_dataset(root: str, duration: int = 8, seed: int = 0):
@@ -2640,6 +2665,210 @@ def learn_fast_phase(torch, card: str):
                           LEARN_FAST_STEPS, 0.2)
 
 
+def front_end_phase(torch, card: str):
+    """The system's two ends, chained on one synthetic capture: a
+    full-geometry DCA1000 capture per view (FRONT_FRAMES frames of 4 RX x
+    192 chirps x 256 samples, int16 uniform in [-300, 300) from a seed)
+    written as preprocessing/raw_data/iwr1843/HuPR/single_1/{hori,vert}/
+    adc_data.bin in a scratch working directory, then
+    - preprocess: the preprocessing CLI's RadarPreprocessor on the card
+      (batch_frames FRONT_BATCH) writes data/HuPR/single_1's cubes; every
+      cube held within CUBE_PEAK_REL of its peak against the port's
+      radar_cube_frames on the CPU, the first and last frame of each view
+      within ORACLE_PEAK_REL against tests/oracles.oracle_radar_cube;
+    - audit: those cubes with write_sequence's kind of annotations, the
+      flagship recipe (runner_config, the kernels) and a seeded
+      model_best.pth: the parity audit's body exits 2 before the weights
+      exist, 0 with them (its AP equal to Runner.eval's from the same
+      .pth), and 1 with --expected-ap at AP + 0.1;
+    - live: the same two captures replayed over loopback UDP through live
+      serving's body at full width (flagship float32, the kernels, the
+      same .pth, the C++ reassembler asked for), every byte received, no
+      late byte, overflow or resync, and its poses held against a
+      StreamingPoseEstimator fed the captures' int16 planes directly, at
+      the stream phase's bars.
+    The kernel counts are zeroed just before the audit's and live
+    serving's runs and read just after. No profiler runs here. Returns
+    the `front_end` line's object."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+
+    from hupr_tpu_torch.config import flagship_serving_config
+    from hupr_tpu_torch.data.capture import stream_to_iq_planes
+    from hupr_tpu_torch.engine.runner import Runner
+    from hupr_tpu_torch.engine.streaming import StreamingPoseEstimator
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops.dsp import (RadarParams, frames_from_adc,
+                                        radar_cube_frames)
+    from hupr_tpu_torch.preprocessing.process_iwr1843 import (
+        RadarPreprocessor, decode_dca1000_np)
+    from hupr_tpu_torch.scripts import live_serve, parity_audit
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    from oracles import oracle_radar_cube
+
+    rp = RadarParams()
+    samples = 2 * rp.num_rx * rp.num_chirp * rp.num_adc_samples
+    frames = FRONT_FRAMES
+    views = ("hori", "vert")
+    line = {"card": card, "frames": frames}
+    root = tempfile.mkdtemp(prefix="hupr_front_end_")
+    cwd = os.getcwd()
+    try:
+        os.chdir(root)
+        rng = np.random.default_rng(FRONT_SEED)
+        raw = os.path.join("preprocessing", "raw_data", "iwr1843", "HuPR",
+                           "single_1")
+        streams = {}
+        for view in views:
+            os.makedirs(os.path.join(raw, view))
+            streams[view] = rng.integers(-300, 300, frames * samples
+                                         ).astype(np.int16)
+            streams[view].tofile(os.path.join(raw, view, "adc_data.bin"))
+
+        # ---- preprocess: the CLI's body on the card
+        pre = RadarPreprocessor(num_sequences=1, batch_frames=FRONT_BATCH)
+        _, seconds = timed(torch, pre.process_radar_data_hori_vert)
+        print(flush=True)        # the CLI's progress line ends with \r
+        cube_err, oracle_err = 0.0, 0.0
+        out = os.path.join("data", "HuPR", "single_1")
+        for view in views:
+            adc = decode_dca1000_np(streams[view], rp)
+            x = frames_from_adc(torch.from_numpy(adc), rp)
+            for start in range(0, frames, 16):
+                stop = min(start + 16, frames)
+                with torch.inference_mode():
+                    want = radar_cube_frames(x[start:stop], rp).numpy()
+                for k, f in enumerate(range(start, stop)):
+                    got = np.load(os.path.join(out, view, f"{f:09d}.npy"))
+                    if got.shape != (16, 64, 64, 8) or \
+                            got.dtype != np.complex64:
+                        raise AssertionError(f"front_end: cube {view} {f}: "
+                                             f"{got.shape} {got.dtype}")
+                    cube_err = max(cube_err, float(
+                        np.abs(got - want[k]).max() / np.abs(want[k]).max()))
+                    if f in (0, frames - 1):
+                        o = oracle_radar_cube(
+                            adc[:, rp.num_chirp * f:rp.num_chirp * (f + 1)])
+                        oracle_err = max(oracle_err, float(
+                            np.abs(got - o).max() / np.abs(o).max()))
+        line["preprocess"] = {
+            "preprocess_frames_per_sec": len(views) * frames / seconds,
+            "seconds": seconds, "batch_frames": FRONT_BATCH,
+            "cube_rel_err_vs_cpu": cube_err,
+            "oracle_rel_err_frames_first_last": oracle_err}
+
+        # ---- audit: the parity audit's body on those cubes
+        data = os.path.join("data", "HuPR")
+        write_annotations(data, frames, FRONT_SEED)
+        cfg = runner_config(data, "pallas")
+        cfg.DATASET.duration = frames
+        parse = parity_audit.build_arg_parser().parse_args
+        rc_missing, _ = parity_audit.run_audit(parse(["--dir", "front_end"]),
+                                               cfg)
+        seed_checkpoint(cfg, "front_end", "model_best.pth")
+        attention.reset_launch_counts()
+        (rc, report), audit_s = timed(torch, lambda: parity_audit.run_audit(
+            parse(["--dir", "front_end"]), cfg))
+        audit_launches = wrapper_launches(attention)["attention_fwd"]
+        if report is None:
+            raise AssertionError(f"front_end: the audit exited {rc} with "
+                                 f"the cubes and the weights in place")
+        ap = report["AP"]
+        rc_gate, gate = parity_audit.run_audit(parse(
+            ["--dir", "front_end", "--expected-ap", str(ap + 0.1)]), cfg)
+        runner = Runner(runner_args("front_end", eval_mode=True), cfg)
+        runner.load_model_weight("model_best")
+        runner_ap = runner.eval(visualization=False)
+        del runner
+        eval_batches = -(-frames // cfg.TEST.batchSize)
+        line["audit"] = {"exit_codes": {"missing": rc_missing, "ran": rc,
+                                        "gate_missed": rc_gate},
+                         "report": report, "runner_eval_ap": runner_ap,
+                         "seconds": audit_s,
+                         "attention_fwd_launches": audit_launches}
+
+        # ---- live: the same captures over loopback UDP
+        with open("/proc/sys/net/core/rmem_max") as fp:
+            rmem_max = int(fp.read())
+        print(f"net.core.rmem_max {rmem_max}", flush=True)
+        ckpt = os.path.join("logs", "front_end", "model_best.pth")
+        args = live_serve.build_arg_parser().parse_args(
+            ["--checkpoint", ckpt, "--frames", str(frames)])
+        live_cfg = flagship_serving_config()
+        attention.reset_launch_counts()
+        result = live_serve.serve(args, live_cfg, streams=streams,
+                                  native=True)
+        live_launches = wrapper_launches(attention)["attention_fwd"]
+        # the estimator fed the captures' int16 planes straight from the
+        # .bin files
+        ds = live_cfg.DATASET
+        model = build_model(live_cfg)
+        state = torch.load(ckpt, weights_only=True)["model_state_dict"]
+        est = StreamingPoseEstimator(model, state, ds.radar_params(),
+                                     ds.numGroupFrames, ds.numFrames)
+        files = {v: np.fromfile(os.path.join(raw, v, "adc_data.bin"),
+                                np.int16) for v in views}
+        want = [est.process_frame(*(stream_to_iq_planes(
+            files[v][f * samples:(f + 1) * samples], rp) for v in views))
+            for f in range(frames)]
+        want_pred = np.stack([p for p, _ in want])
+        want_maxv = np.stack([m for _, m in want])
+        del model, est
+        full = frames * samples * 2
+        agree = float((result["pred2d"] == want_pred).all(-1).mean()) \
+            if result["pred2d"].shape == want_pred.shape else 0.0
+        maxv_err = float(np.abs(result["maxvals"] - want_maxv).max()) \
+            if result["maxvals"].shape == want_maxv.shape else math.inf
+        line["live"] = {
+            "live_frames_per_sec": result["fps"],
+            "process_frame_ms_mean": result["process_frame_ms"],
+            "served": result["served"], "seconds": result["seconds"],
+            "resyncs": result["resyncs"], "native": result["native"],
+            "stats": result["stats"], "rmem_max": rmem_max,
+            "maxvals_max_abs_err_vs_estimator": maxv_err,
+            "keypoint_agreement_vs_estimator": agree,
+            "attention_fwd_launches": live_launches}
+    finally:
+        os.chdir(cwd)
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"live process_frame {line['live']['process_frame_ms_mean']} ms "
+          f"mean", flush=True)
+    print(json.dumps({"front_end": line}), flush=True)
+    lag = live_cfg.DATASET.numGroupFrames // 2 - 1   # latency_frames
+    checks = {
+        "preprocess cubes vs cpu": cube_err <= CUBE_PEAK_REL,
+        "preprocess cubes vs oracle": oracle_err <= ORACLE_PEAK_REL,
+        "audit exit codes": (rc_missing, rc, rc_gate) == (2, 0, 1),
+        "audit AP": 0.0 <= ap <= 1.0 and gate["AP"] == ap,
+        "audit AP equals Runner.eval": abs(ap - runner_ap) <= 1e-12,
+        # 12 a sequence-eval batch
+        "audit launches": audit_launches == {"f32": 12 * eval_batches},
+        "live served": result["served"] == frames,
+        "live native": result["native"],
+        "live bytes": all(result["stats"][v]["bytes"] == full
+                          for v in views),
+        "live late/overflow": all(
+            result["stats"][v]["late_bytes"] == 0
+            and result["stats"][v]["overflow_frames"] == 0 for v in views),
+        "live resyncs": result["resyncs"] == 0,
+        "live maxvals vs estimator": maxv_err <= MAXVAL_TOL,
+        "live keypoints vs estimator": agree >= STREAM_AGREE["f32"],
+        # the warm-up's first frame, its capture warm-up step and its
+        # capture, the sequence's first frame and its flushed frames; a
+        # replay calls no wrapper
+        "live launches": live_launches == {"f32": 12 * (4 + lag)},
+        "live peaks spread": 1e-3 < float(want_maxv.std())}
+    failed = [name for name, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"front_end checks failed: {failed}")
+    return line
+
+
 def kernel_entry(name, mode, source, replaces, launches, rows, scale, per,
                  **extra):
     """One object of the `kernels` line: times and bounds summed over
@@ -2742,6 +2971,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     ln = learn_phase(torch, smi)
     lf = learn_fast_phase(torch, smi)
+    fe = front_end_phase(torch, smi)
     backward_passes(torch)
 
     shapes = "4 at each (N, C) of (256, 256), (1024, 128), (4096, 64)"
@@ -2768,7 +2998,10 @@ def main() -> int:
                       "learn":
                           ln["pallas"]["launches"]["attention_fwd"]["f32"],
                       "stream":
-                          st["f32"]["sequence_wrapper_launches"]["f32"]},
+                          st["f32"]["sequence_wrapper_launches"]["f32"],
+                      "audit":
+                          fe["audit"]["attention_fwd_launches"]["f32"],
+                      "live": fe["live"]["attention_fwd_launches"]["f32"]},
                      rows, 4, per_request, stream_B1=b1("f32"),
                      stream_traced=st["f32"][
                          "traced_attention_fwd_kernels"],

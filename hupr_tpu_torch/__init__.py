@@ -10,7 +10,12 @@ NVIDIA Hopper (sm_90a).
   engine.steps      make_train_step / make_eval_step: one batch of raw
                     windows and joints -> losses, an optimizer step
   data              the HuPR dataset, its batch loader and GT JSON; the
-                    native frame loader (native/npy_loader.cc)
+                    native frame loader (native/npy_loader.cc); live
+                    DCA1000 capture (data.capture, native/dca1000.cc)
+  preprocessing     the preprocessing CLI: raw captures -> .npy cubes
+  scripts           live_serve (capture -> streaming poses), parity_audit
+                    (model_best.pth -> COCO AP), the microbenchmark and
+                    the remat and batch-size scripts
   models            HuPRNet (MNet, Encoder3D, MSCSA decoder, PRGCN) with the
                     reference's state_dict keys; convert.state_dict_from_jax
   ops               radar DSP (torch.fft), normalize, resize, Gaussian
@@ -19,7 +24,8 @@ NVIDIA Hopper (sm_90a).
   config            the YAML schema of hupr_tpu.config, the CLI's flags
 
 The package imports torch and numpy only: no JAX, nothing of hupr_tpu, and
-none of PyYAML (but to read a YAML), tqdm, cv2 or PIL (but to draw).
+none of PyYAML (but to read a YAML), tqdm, cv2, PIL or matplotlib (but
+to draw).
 """
 
 __version__ = "0.1.0"

@@ -26,9 +26,18 @@ CONFIGS = sorted(glob.glob(os.path.join(REPO, "config", "*.yaml")))
 BLOCKED = ("jax", "flax", "optax", "hupr_tpu", "yaml", "tqdm", "cv2", "PIL",
            "ml_dtypes", "msgpack")
 
+# modules that must be among those imported: the streaming, chunk-training,
+# raw-ADC and remat scripts' modules, and the preprocessing CLI, the live
+# capture, live serving and the parity audit
+NEW = ("data.adc", "engine.chunk_train", "engine.streaming",
+       "scripts.remat_memory", "scripts.batch_sweep",
+       "preprocessing.process_iwr1843", "data.capture", "scripts.live_serve",
+       "scripts.parity_audit")
+
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
 BLOCKED = %r
+NEW = %r
 class Block:
     def find_spec(self, name, path=None, target=None):
         if name.split(".")[0] in BLOCKED:
@@ -41,19 +50,17 @@ import chip_smoke
 bad = sorted(m for m in sys.modules if m.split(".")[0] in BLOCKED)
 print("LOADED", len([m for m in sys.modules if m.startswith("hupr_tpu_torch")]))
 print("MAIN", "hupr_tpu_torch.main" in sys.modules)
-for m in ("data.adc", "engine.chunk_train", "engine.streaming",
-          "scripts.remat_memory", "scripts.batch_sweep"):
+for m in NEW:
     if "hupr_tpu_torch." + m in sys.modules:
         print("NEW", "hupr_tpu_torch." + m)
 print("BAD", bad)
-""" % (BLOCKED,)
+""" % (BLOCKED, NEW)
 
 
 def test_port_imports_no_jax_no_reference_package():
     """Every module of the port, its CLI (hupr_tpu_torch.main) and the
-    streaming, chunk-training and raw-ADC modules and the remat_memory and
-    batch_sweep scripts among them, and chip_smoke.py import with JAX, the
-    JAX package, PyYAML, tqdm, cv2, PIL, ml_dtypes and msgpack blocked."""
+    modules of NEW among them, and chip_smoke.py import with JAX, the JAX
+    package, PyYAML, tqdm, cv2, PIL, ml_dtypes and msgpack blocked."""
     out = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=REPO,
                          capture_output=True, text=True, timeout=120,
                          env={**os.environ, "PYTHONPATH": REPO})
@@ -62,8 +69,7 @@ def test_port_imports_no_jax_no_reference_package():
     assert "MAIN True" in out.stdout, out.stdout
     loaded = int(re.search(r"LOADED (\d+)", out.stdout).group(1))
     assert loaded >= 30, out.stdout
-    for module in ("data.adc", "engine.chunk_train", "engine.streaming",
-                   "scripts.remat_memory", "scripts.batch_sweep"):
+    for module in NEW:
         assert f"NEW hupr_tpu_torch.{module}" in out.stdout, out.stdout
 
 
@@ -111,17 +117,42 @@ def test_radar_params_validates_geometry():
         bad.DATASET.radar_params()
 
 
-def test_entry_points_refuse_silent_cpu(monkeypatch):
+def test_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
+    """With no card and no request for the CPU, the entry points raise:
+    build_model, make_e2e_infer, the preprocessor and its CLI, live
+    serving (script and body) and the parity audit (script and body)."""
     from hupr_tpu_torch.engine.pipeline import make_e2e_infer
     from hupr_tpu_torch.models.hupr import HuPRNet, build_model
+    from hupr_tpu_torch.preprocessing import process_iwr1843
+    from hupr_tpu_torch.scripts import live_serve, parity_audit
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv("HUPR_PLATFORM", raising=False)
+    monkeypatch.chdir(tmp_path)
     cfg = port_config.config_from_dict({"MODEL": {"numFilters": 2}})
     with pytest.raises(RuntimeError, match="device='cpu'"):
         build_model(cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         make_e2e_infer(HuPRNet(num_filters=2, heatmap_size=16))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        process_iwr1843.RadarPreprocessor(num_sequences=1)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        process_iwr1843.main(["--sequences", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        live_serve.main(["--synthetic", "--frames", "1"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        live_serve.serve(live_serve.build_arg_parser().parse_args(
+            ["--synthetic"]), cfg)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parity_audit.main(["--config", "mscsa_prgcn.yaml"])
+    (tmp_path / "data").mkdir()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        parity_audit.run_audit(parity_audit.build_arg_parser().parse_args(
+            ["--dir", "x"]), port_config.config_from_dict(
+            {"DATASET": {"dataDir": "data", "testName": [1],
+                         "duration": 1}}))
     assert build_model(cfg, device="cpu").training is False
+    assert not os.path.exists(tmp_path / "data" / "HuPR")
 
 
 @pytest.mark.parametrize("field,value,exc", [
