@@ -90,7 +90,18 @@
    serves the same captures replayed over loopback UDP through the C++
    reassembler (every byte, no resync, the poses held against the
    estimator fed the captures directly). No profiler runs here.
-16. Prints the `kernels` line (every kernel and mode), then ends with one
+16. Data parallel on the one card (parallel_phase): two ranks, each a
+   process this script starts (--dp-worker), sharing the card over gloo
+   (NCCL refuses two ranks on one device): the flagship float32 step and
+   the fast recipe's raw-ADC chunk step in float32 and bfloat16 on 19 real
+   rows padded to 20, 8 steps from seeded weights, held against the
+   one-rank step on the card (12 + 12 launches a step on each rank); the
+   Runner under HUPR_MULTIHOST=1 over two 64-frame sequences (process-0
+   checkpoints, merged rank files, its AP against a one-process eval);
+   and main.run in a world of one on NCCL against the plain Runner. Its
+   ms per step (dp_shared_card_ms_per_step) is two ranks time-slicing
+   one card, not a scaling number. No profiler runs here.
+17. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -1246,34 +1257,37 @@ def backward_passes(torch, reps: int = 3):
 
 
 def write_sequence(root: str, frames: int, spatial: int = 64,
-                   seed: int = 0) -> str:
-    """One synthetic sequence (single_1) of `frames` complex64 radar cubes
-    (16 chirps, spatial x spatial, 8 elevation bins) per view under
-    root/data, and its annotations for the train, val and test splits:
-    joints uniform in (40, 210) of a 256-pixel image, every GT box
-    1500x1500 as tests/test_golden_ap.py inflates them (OKS divides by the
-    gt area, and with the natural boxes a random model scores exactly 0).
-    Returns the data directory."""
+                   seed: int = 0, seqs=(1,)) -> str:
+    """Synthetic sequences (single_1, ... by `seqs`) of `frames` complex64
+    radar cubes each (16 chirps, spatial x spatial, 8 elevation bins) per
+    view under root/data, and their annotations for the train, val and
+    test splits: joints uniform in (40, 210) of a 256-pixel image, every
+    GT box 1500x1500 as tests/test_golden_ap.py inflates them (OKS divides
+    by the gt area, and with the natural boxes a random model scores
+    exactly 0). Returns the data directory."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
     data = os.path.join(root, "data")
-    blocks = []
-    for view in ("hori", "vert"):
-        os.makedirs(os.path.join(data, "single_1", view))
-    for f in range(frames):
+    annots = []
+    for seq in seqs:
+        blocks = []
         for view in ("hori", "vert"):
-            cube = np.empty((16, spatial, spatial, 8), np.complex64)
-            cube.real = rng.standard_normal(cube.shape, np.float32)
-            cube.imag = rng.standard_normal(cube.shape, np.float32)
-            np.save(os.path.join(data, "single_1", view, f"{f:09d}.npy"),
-                    cube)
-        blocks.append({"image": f"{f:09d}.jpg",
-                       "joints": rng.uniform(40, 210, (14, 2)).tolist(),
-                       "bbox": [0.0, 0.0, 1500.0, 1500.0]})
+            os.makedirs(os.path.join(data, f"single_{seq}", view))
+        for f in range(frames):
+            for view in ("hori", "vert"):
+                cube = np.empty((16, spatial, spatial, 8), np.complex64)
+                cube.real = rng.standard_normal(cube.shape, np.float32)
+                cube.imag = rng.standard_normal(cube.shape, np.float32)
+                np.save(os.path.join(data, f"single_{seq}", view,
+                                     f"{f:09d}.npy"), cube)
+            blocks.append({"image": f"{f:09d}.jpg",
+                           "joints": rng.uniform(40, 210, (14, 2)).tolist(),
+                           "bbox": [0.0, 0.0, 1500.0, 1500.0]})
+        annots.append(blocks)
     for phase in ("train", "val", "test"):
         with open(os.path.join(data, f"hrnet_annot_{phase}.json"), "w") as fp:
-            json.dump([blocks], fp)
+            json.dump(annots, fp)
     return data
 
 
@@ -2056,12 +2070,17 @@ def runner_fast_phase(torch, card: str):
     the same windows (the runner phase's 8 steps: every chunk in order,
     twice; the last of each epoch padded), the raw-ADC chunk step against
     the cube chunk step, and the cube chunk step against the classic step,
-    at the runner phase's bars; and three planted faults that the first
-    hold must catch (the I and Q lanes swapped in the decode, the frames
-    off by one, one leaf left untrained). Times FAST_TIMED_EPOCHS epochs
-    of the chunk-mode train loop one by one after a warm-up epoch, and
-    raw-ADC sequence eval. Returns the results."""
+    at the runner phase's bars, each step of the first path taken from the
+    weights, BN statistics and Adam state that the second holds before its
+    own step: the two then differ by that step's computation alone, where
+    two trajectories left to run apart on rounding read each leaf's update
+    up to the bar on right code (PERF.md section 6); and three planted
+    faults that the first hold must catch (the I and Q lanes swapped in
+    the decode, the frames off by one, one leaf left untrained). Times
+    FAST_TIMED_EPOCHS epochs of the chunk-mode train loop one by one after
+    a warm-up epoch, and raw-ADC sequence eval. Returns the results."""
     import contextlib
+    import copy
     import io
     import shutil
     import tempfile
@@ -2172,11 +2191,10 @@ def runner_fast_phase(torch, card: str):
             c[:, params.num_kept_chirps // 2] = 0
             return c
 
-        def drive(kind):
+        def path(kind):
             model = build_model(cfg32)
             model.load_state_dict(w0)
             tx = make_optimizer(cfg32, model)
-            state = TrainState(model, tx)
             if kind == "classic":
                 step = make_train_step(model, tx, t.lossDecay, geometry)
             elif kind == "cube":
@@ -2185,61 +2203,80 @@ def runner_fast_phase(torch, card: str):
                 step = chunk_train.make_adc_chunk_train_step(
                     model, tx, geometry, radar_params=rp,
                     num_frames=d.numFrames)
-            losses = []
-            for i, ci in enumerate(picks):
-                if kind == "classic":
-                    batch = classic_batch(ci)
-                else:
-                    loader = adc_loader if kind == "adc" else cube_loader
-                    batch, _ = chunk_train.device_put_chunk(
-                        loader._assemble(loader.chunks[ci]))
-                state, m = step(state, batch, t.lr * t.lrDecay ** i, 0.0)
-                losses.append(m["loss"].item())
-            return losses, model
+            return TrainState(model, tx), step
 
-        def adc_drive(dsp):
+        def batch_of(kind, ci):
+            if kind == "classic":
+                return classic_batch(ci)
+            loader = adc_loader if kind == "adc" else cube_loader
+            batch, _ = chunk_train.device_put_chunk(
+                loader._assemble(loader.chunks[ci]))
+            return batch
+
+        def drive(kind, ref, dsp=pinned):
+            """`kind`'s steps beside `ref`'s over the picks, each of
+            `kind`'s taken from the weights, BN statistics and Adam state
+            that `ref` holds before its own step, with `dsp` as the raw-ADC
+            path's cube DSP. Returns ((kind's losses, ref's), (w0 plus the
+            sum of kind's steps, ref's state)) for hold_readings."""
+            state, step = path(kind)
+            ref_state, ref_step = path(ref)
+            total = {k: v.detach().clone()
+                     for k, v in state.model.state_dict().items()}
+            losses, ref_losses = [], []
             chunk_train.radar_cube_frames = dsp
             try:
-                return drive("adc")
+                for i, ci in enumerate(picks):
+                    lr = t.lr * t.lrDecay ** i
+                    before = {k: v.detach().clone() for k, v in
+                              ref_state.model.state_dict().items()}
+                    state.model.load_state_dict(before)
+                    state.optimizer.load_state_dict(
+                        copy.deepcopy(ref_state.optimizer.state_dict()))
+                    state, m = step(state, batch_of(kind, ci), lr, 0.0)
+                    ref_state, m_ref = ref_step(ref_state, batch_of(ref, ci),
+                                                lr, 0.0)
+                    for k, v in state.model.state_dict().items():
+                        if v.is_floating_point():
+                            total[k] += v - before[k]
+                        else:
+                            total[k] = v.clone()
+                    losses.append(m["loss"].item())
+                    ref_losses.append(m_ref["loss"].item())
             finally:
                 chunk_train.radar_cube_frames = cube
+            return ((losses, ref_losses),
+                    (_StateDict(total), ref_state.model))
 
-        paths = {kind: drive(kind) for kind in ("classic", "cube")}
+        pairs = {"adc_vs_cube": drive("adc", "cube"),
+                 "chunk_vs_classic": drive("cube", "classic")}
         classic.clear()
-        paths["adc"] = adc_drive(pinned)
         # planted faults that the raw-ADC hold must catch: the decode's I
         # and Q lanes swapped, each chunk's frames off by one, and the
         # leaf that reads the hold's worst update left untrained
-        untrained = build_model(cfg32)
-        untrained.load_state_dict(paths["adc"][1].state_dict())
+        (adc_losses, cube_losses), (adc_sd, cube_model) = pairs["adc_vs_cube"]
         leaf = "RAchirpNet.temporalConvWx1x1.weight"
-        with torch.no_grad():
-            untrained.get_parameter(leaf).copy_(w0[leaf])
+        untrained = dict(adc_sd.state_dict())
+        untrained[leaf] = w0[leaf].to(untrained[leaf].device)
         faulty = {
-            "iq_swapped": adc_drive(
-                lambda f, p: pinned(1j * f.conj(), p)),
-            "frames_off_by_one": adc_drive(
-                lambda f, p: pinned(f.roll(1, 0), p)),
-            "leaf_untrained": (paths["adc"][0], untrained)}
+            "iq_swapped": drive(
+                "adc", "cube", lambda f, p: pinned(1j * f.conj(), p)),
+            "frames_off_by_one": drive(
+                "adc", "cube", lambda f, p: pinned(f.roll(1, 0), p)),
+            "leaf_untrained": ((adc_losses, cube_losses),
+                               (_StateDict(untrained), cube_model))}
         planted = {}
-        for fault, (f_losses, f_model) in faulty.items():
-            reading, passed = hold_readings(
-                torch, (f_losses, paths["cube"][0]),
-                (f_model, paths["cube"][1]), w0)
+        for fault, (f_losses, f_models) in faulty.items():
+            reading, passed = hold_readings(torch, f_losses, f_models, w0)
             planted[fault] = {key: reading[key] for key in (
                 "loss_max_rel_err", "allclose_excess", "update_max_rel_err",
                 "update_worst_leaf")} | {"caught": not passed}
         del faulty, untrained
-        holds = {
-            "adc_vs_cube": hold_steps(
-                torch, "ADC chunk step vs cube chunk step",
-                (paths["adc"][0], paths["cube"][0]),
-                (paths["adc"][1], paths["cube"][1]), w0),
-            "chunk_vs_classic": hold_steps(
-                torch, "cube chunk step vs classic step",
-                (paths["cube"][0], paths["classic"][0]),
-                (paths["cube"][1], paths["classic"][1]), w0)}
-        del paths
+        names = {"adc_vs_cube": "ADC chunk step vs cube chunk step",
+                 "chunk_vs_classic": "cube chunk step vs classic step"}
+        holds = {key: hold_steps(torch, names[key], *pair, w0)
+                 for key, pair in pairs.items()}
+        del pairs, adc_sd, cube_model
 
         result = {
             "card": card, "frames": RUNNER_FRAMES, "epochs": RUNNER_EPOCHS,
@@ -2869,6 +2906,528 @@ def front_end_phase(torch, card: str):
     return line
 
 
+# the parallel phase: data parallel across processes. The card machine has
+# one card, so two ranks share it over gloo (NCCL refuses two ranks on one
+# device): this checks the path, it measures no scaling. The flagship
+# batch's first DP_REAL_ROWS rows, padded to 20 (10 a rank), for DP_STEPS
+# steps from seeded N(0, 0.03) weights; the Runner over DP_SEQS synthetic
+# RUNNER_FRAMES-frame sequences (each rank evaluates one) for
+# RUNNER_EPOCHS epochs
+DP_WORLD, DP_REAL_ROWS, DP_STEPS, DP_SEQS = 2, 19, 8, (1, 2)
+DP_TIMEOUT_S = 600      # for all the ranks of one spawn
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def dp_spawn(job: str, root: str, world: int, env=None,
+             opts=None) -> list:
+    """Run `world` ranks of `job` (this script with --dp-worker, each
+    joining a gloo group through a file:// rendezvous under `root`, its
+    card cuda:0 as LOCAL_RANK 0) and wait for each within DP_TIMEOUT_S;
+    raise with their output on a timeout or a non-zero exit. Returns the
+    results each rank saved."""
+    import torch
+
+    rdv = os.path.join(root, f"rendezvous-{job}-{time.time_ns()}")
+    procs = []
+    for rank in range(world):
+        full_env = {**os.environ, "LOCAL_RANK": "0", "RANK": str(rank),
+                    "WORLD_SIZE": str(world), **(env or {})}
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--dp-worker", job,
+             root, str(rank), str(world), rdv, json.dumps(opts or {})],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            env=full_env))
+    deadline = time.monotonic() + DP_TIMEOUT_S
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(
+                timeout=max(1.0, deadline - time.monotonic()))[0])
+    except subprocess.TimeoutExpired:
+        for p in procs:
+            p.kill()
+        tails = [p.communicate(timeout=30)[0][-3000:] for p in procs]
+        raise AssertionError(f"the ranks of {job} did not finish in "
+                             f"{DP_TIMEOUT_S} s:\n" + "\n----\n".join(tails))
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} of {job} exited "
+                                 f"{p.returncode}:\n{out[-4000:]}")
+    return [torch.load(os.path.join(root, f"{job}-rank{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def dp_config(kind: str, spatial: int = 64):
+    """The flagship float32 recipe ("f32", its classic step) or the fast
+    recipe's raw-ADC chunk step, in bfloat16 ("bf16_chunk") or in float32
+    ("f32_chunk", as runner_fast holds it); spatial < 64 shrinks the maps
+    of "f32" (numFilters stays 32: the kernels take C in {64, 128,
+    256})."""
+    from hupr_tpu_torch.config import (fast_training_config,
+                                       flagship_training_config)
+
+    if kind == "f32":
+        cfg = flagship_training_config()
+        d = cfg.DATASET
+        d.rangeSize = d.azimuthSize = d.heatmapSize = spatial
+        d.imgSize = 4 * spatial
+        return cfg
+    cfg = fast_training_config()
+    if kind == "f32_chunk":
+        cfg.MODEL.computeDtype = cfg.SETUP.transferDtype = "float32"
+    return cfg
+
+
+def dp_chunk_batch(torch, cfg, world: int, rank: int) -> dict:
+    """One chunk batch of the fast recipe, made on the card from a seed:
+    DP_REAL_ROWS consecutive windows (rows 8.. of a RUNNER_FRAMES-frame
+    sequence) of raw int16 frames, both axes padded to a multiple of
+    `world` as ChunkTrainLoader pads them, and `rank`'s block of each."""
+    import numpy as np
+
+    from hupr_tpu_torch.data.dataset import window_indices
+
+    d, b = cfg.DATASET, cfg.TRAINING.batchSize
+    rp = d.radar_params()
+    g = d.numGroupFrames
+    rows = window_indices(RUNNER_FRAMES, RUNNER_FRAMES, g)[
+        8:8 + DP_REAL_ROWS]
+    lo, n_frames = int(rows.min()), int(rows.max() - rows.min() + 1)
+    rows_pad = b + (-b) % world
+    f = b + g - 1
+    f_pad = f + (-f) % world
+    rel = np.empty((rows_pad, g), np.int64)
+    rel[:DP_REAL_ROWS] = rows - lo
+    rel[DP_REAL_ROWS:] = rel[DP_REAL_ROWS - 1]
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    samples = 2 * rp.num_rx * rp.num_chirp * rp.num_adc_samples
+    frames = {v: torch.randint(-300, 300, (n_frames, samples), generator=gen,
+                               device="cuda", dtype=torch.int16)
+              for v in ("hori", "vert")}
+    clamp = torch.arange(f_pad, device="cuda").clamp(max=n_frames - 1)
+    joints = 20 + 210 * torch.rand((DP_REAL_ROWS, 14, 2), generator=gen,
+                                   device="cuda", dtype=torch.float64)
+    joints = torch.cat([joints, joints[-1:].expand(
+        rows_pad - DP_REAL_ROWS, 14, 2)])
+    mask = (torch.arange(rows_pad, device="cuda") < DP_REAL_ROWS).float()
+    fb, rb = f_pad // world, rows_pad // world
+    fr = slice(rank * fb, (rank + 1) * fb)
+    rr = slice(rank * rb, (rank + 1) * rb)
+    return {"hori": frames["hori"][clamp][fr],
+            "vert": frames["vert"][clamp][fr],
+            "rel": torch.from_numpy(rel[rr]).cuda(),
+            "jointsGroup": joints[rr], "mask": mask[rr],
+            "trueB": DP_REAL_ROWS}
+
+
+def dp_run(torch, kind: str, mesh, w0: dict, steps: int = DP_STEPS,
+           spatial: int = 64) -> dict:
+    """`steps` train steps of `kind` (dp_config) from the weights w0 on
+    the first DP_REAL_ROWS rows of its batch padded to 20: with `mesh`
+    (more than one rank) this rank's block and the data-parallel step,
+    with None the one-rank masked step on the card. Returns the losses,
+    ms per step after the first (host clock, each step read back), the
+    launches counted over the steps, which weights got an exactly-zero
+    gradient at the first step, and the final state_dict on the host."""
+    from hupr_tpu_torch.engine import chunk_train
+    from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                             make_train_step)
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.parallel import Mesh, replicate_state, shard_batch
+
+    cfg = dp_config(kind, spatial)
+    d, t = cfg.DATASET, cfg.TRAINING
+    geometry = (d.numKeypoints, d.heatmapSize, d.imgSize)
+    one = mesh is None
+    mesh = mesh or Mesh(0, 1, torch.device("cuda"))
+    model = build_model(cfg, mesh.device)
+    model.load_state_dict(w0)
+    tx = make_optimizer(cfg, model)
+    state = replicate_state(TrainState(model, tx), mesh)
+    if kind == "f32":
+        step = make_train_step(model, tx, t.lossDecay, geometry,
+                               mesh=None if one else mesh)
+        full = bench_batch(torch, cfg)
+        batch, _ = shard_batch({k: v[:DP_REAL_ROWS] for k, v in full.items()},
+                               mesh, pad_to=t.batchSize)
+    else:
+        step = chunk_train.make_adc_chunk_train_step(
+            model, tx, geometry, mesh=None if one else mesh,
+            radar_params=d.radar_params(), num_frames=d.numFrames)
+        batch = dp_chunk_batch(torch, cfg, mesh.world, mesh.rank)
+    attention.reset_launch_counts()
+    losses, seconds, zero = [], [], None
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics = step(state, batch, t.lr, 0.0)
+        losses.append(metrics["loss"].item())
+        seconds.append(time.perf_counter() - t0)
+        if i == 0:
+            zero = torch.cat([(p.grad == 0).flatten()
+                              for p in model.parameters()]).cpu()
+    return {"losses": losses,
+            "ms_per_step": 1e3 * statistics.mean(seconds[1:]),
+            "launches": (dict(attention.attention_fwd.launches_by_mode),
+                         dict(attention.attention_bwd.launches_by_mode)),
+            "zero": zero, "rows": int(batch["mask"].shape[0]),
+            "state": {k: v.detach().cpu()
+                      for k, v in model.state_dict().items()}}
+
+
+class _StateDict:
+    """A state_dict standing in for a model in hold_readings."""
+
+    def __init__(self, sd):
+        self.sd = sd
+
+    def state_dict(self):
+        return self.sd
+
+
+def dp_hold(torch, kind: str, ranks: list, one: dict, w0: dict,
+            params: list) -> dict:
+    """The ranks' run of `kind` against the one-rank run from the same
+    weights. float32: hold_readings (losses, weights and BN statistics,
+    each leaf's update). bfloat16: the losses and BN statistics at the
+    bf16 train bars; the weights that got an exactly-zero gradient at the
+    first step in one run and not in the other, and each parameter's
+    update on the rest, are read, not held (`params`: the parameters'
+    names in the model's order). The ranks encode 14 frames a conv call
+    and the one rank 27, and their BN statistics combine in another
+    order, so the bfloat16 activations round apart and far more weights
+    sit behind a branch the runs took apart than between two
+    implementations on one batch (6356 on the H100, against
+    BRANCH_FLIPS_MAX's 186), and an update of a one-element PReLU slope
+    read 0.13; `flips_by_leaf` says where. The float32 chunk step holds
+    the same path at the update bar. Both: the replicas equal bit for
+    bit, the same global losses on every rank, finite. Returns the
+    readings; raises past a bar."""
+    r0 = ranks[0]
+    same = all(r["losses"] == r0["losses"] and all(
+        torch.equal(v, r["state"][k]) for k, v in r0["state"].items())
+        for r in ranks[1:])
+    finite = all(map(math.isfinite, r0["losses"] + one["losses"]))
+    if kind != "bf16_chunk":
+        out, ok = hold_readings(torch, (r0["losses"], one["losses"]),
+                                (_StateDict(r0["state"]),
+                                 _StateDict(one["state"])), w0)
+    else:
+        bars = TRAIN_BARS["bf16"]
+        loss_rel = max(abs(a - c) / abs(c)
+                       for a, c in zip(r0["losses"], one["losses"]))
+        flips = r0["zero"] != one["zero"]
+        updates, flips_by_leaf, offset = {}, {}, 0
+        for key in params:
+            n = w0[key].numel()
+            keep = ~flips[offset:offset + n].reshape(w0[key].shape)
+            offset += n
+            if not keep.all():
+                flips_by_leaf[key] = int((~keep).sum())
+            d = (r0["state"][key] - w0[key]).double()[keep]
+            d_x = (one["state"][key] - w0[key]).double()[keep]
+            updates[key] = ((d - d_x).norm() / d_x.norm()).item() \
+                if d_x.norm() > 0 else 0.0
+        stats_excess = max(
+            allclose_excess(v, one["state"][k], *bars["stats"])
+            for k, v in r0["state"].items()
+            if v.is_floating_point() and k not in updates)
+        worst = max(updates, key=updates.get)
+        out = {"losses": r0["losses"], "losses_other": one["losses"],
+               "loss_max_rel_err": loss_rel,
+               "bn_stats_allclose_excess": stats_excess,
+               "param_branch_flips": int(flips.sum()),
+               "flips_by_leaf": dict(sorted(flips_by_leaf.items(),
+                                            key=lambda kv: -kv[1])[:8]),
+               "update_max_rel_err": updates[worst],
+               "update_worst_leaf": worst}
+        ok = loss_rel <= bars["loss_rtol"] and stats_excess <= 0
+    out.update(replicas_equal=same, finite=finite)
+    if not (ok and same and finite):
+        raise AssertionError(f"parallel {kind}: {out}")
+    return out
+
+
+def dp_step_phase(torch, kind: str, root: str, steps: int = DP_STEPS,
+                  spatial: int = 64) -> dict:
+    """`kind`'s step on two ranks sharing the card (gloo) against the
+    one-rank step, from seeded N(0, 0.03) weights (dp_run, dp_hold):
+    12 forward and 12 backward launches a step on each rank. Returns the
+    readings, the ranks' ms per step beside the one-rank step's, and the
+    launches."""
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    mode = "bf16" if kind == "bf16_chunk" else "f32"
+    model = build_model(dp_config(kind, spatial), "cpu")
+    w0 = synthetic_state_dict(model, seed=0, scale=0.03)
+    params = [k for k, _ in model.named_parameters()]
+    torch.save(w0, os.path.join(root, f"w0-{kind}.pt"))
+    ranks = dp_spawn(f"step_{kind}", root, DP_WORLD,
+                     opts={"steps": steps, "spatial": spatial})
+    one = dp_run(torch, kind, None, w0, steps, spatial)
+    readings = dp_hold(torch, kind, ranks, one, w0, params)
+    want = ({mode: 12 * steps}, {mode: 12 * steps})
+    launches = [r["launches"] for r in ranks]
+    if any(tuple(lc) != want for lc in launches) or \
+            any(r["rows"] != 20 // DP_WORLD for r in ranks):
+        raise AssertionError(f"parallel {kind}: ranks launched {launches} "
+                             f"(expected {want} each) on "
+                             f"{[r['rows'] for r in ranks]} rows")
+    out = {**readings, "world": DP_WORLD, "steps": steps,
+            "real_rows": DP_REAL_ROWS,
+            "dp_shared_card_ms_per_step": max(r["ms_per_step"]
+                                              for r in ranks),
+            "rank_ms_per_step": [r["ms_per_step"] for r in ranks],
+            "one_rank_ms_per_step": one["ms_per_step"],
+            "launches_by_rank": [{"attention_fwd": lc[0][mode],
+                                  "attention_bwd": lc[1][mode]}
+                                 for lc in launches]}
+    print(json.dumps({f"parallel_{kind}": {
+        k: v for k, v in out.items() if k not in ("losses",
+                                                  "losses_other")}}),
+          flush=True)
+    return out
+
+
+def dp_runner_phase(torch, root: str, data: str) -> dict:
+    """hupr_tpu_torch.main.run under HUPR_MULTIHOST=1 in two ranks sharing
+    the card (gloo, set up by the ranks), from one seeded checkpoint.pth,
+    RUNNER_EPOCHS epochs over the DP_SEQS sequences: the same losses and
+    APs on both ranks; process 0 alone wrote checkpoints; the val results
+    merged (every frame, image ids sorted, both sequences, no rank file);
+    the last epoch's AP equal, within PROTOCOL_ATOL, to a one-process
+    Runner's eval of the same checkpoint.pth. Returns the readings."""
+    from hupr_tpu_torch.engine.runner import Runner
+
+    cwd = os.getcwd()
+    os.chdir(root)
+    try:
+        cfg = dp_runner_config(data)
+        seed_checkpoint(cfg, "mh")
+        r0, r1 = dp_spawn("runner", root, DP_WORLD)
+        args = runner_args("mh", True)
+        args.evalPhase = "val"
+        one = Runner(args, cfg)
+        one.load_model_weight("checkpoint")
+        one_ap = one.eval(visualization=False)
+        with open(os.path.join("logs", "mh", "val_results.json")) as fp:
+            ids = [b["image_id"] for b in json.load(fp)]
+        left = [f for f in os.listdir(os.path.join("logs", "mh"))
+                if "rank" in f]
+    finally:
+        os.chdir(cwd)
+    t = cfg.TRAINING
+    n = RUNNER_FRAMES * len(DP_SEQS)
+    steps = RUNNER_EPOCHS * -(-n // t.batchSize)
+    evals = RUNNER_EPOCHS * -(-RUNNER_FRAMES // cfg.TEST.batchSize)
+    want = {"attention_fwd": 12 * (steps + evals),
+            "attention_bwd": 12 * steps}
+    out = {"epochs": RUNNER_EPOCHS, "sequences": len(DP_SEQS),
+           "frames_per_sequence": RUNNER_FRAMES,
+           "losses": r0["losses"], "val_ap_by_epoch": r0["aps"],
+           "one_process_eval_ap": one_ap, "saves_by_rank": [r0["saves"],
+                                                           r1["saves"]],
+           "launches_by_rank": [r0["launches"], r1["launches"]],
+           "merged_val_results": len(ids), "epoch_s_by_rank":
+               [r0["seconds"], r1["seconds"]]}
+    checks = {
+        "losses equal": r0["losses"] == r1["losses"]
+            and len(r0["losses"]) == steps
+            and all(map(math.isfinite, r0["losses"])),
+        "APs equal": r0["aps"] == r1["aps"]
+            and len(r0["aps"]) == RUNNER_EPOCHS,
+        "process 0 alone saves": r1["saves"] == [] and
+            "checkpoint.pth" in r0["saves"],
+        "merged": ids == sorted(ids) and len(ids) == n and not left
+            and {i // 100000 for i in ids} == set(DP_SEQS),
+        "AP vs one process": abs(r0["aps"][-1] - one_ap) <= PROTOCOL_ATOL,
+        "launches": r0["launches"] == r1["launches"] == want,
+    }
+    print(json.dumps({"parallel_runner": out}), flush=True)
+    failed = [k for k, ok in checks.items() if not ok]
+    if failed:
+        raise AssertionError(f"parallel runner checks failed: {failed}: "
+                             f"{out}")
+    return out
+
+
+def dp_runner_config(data: str):
+    cfg = runner_config(data)
+    d = cfg.DATASET
+    d.trainName = d.valName = d.testName = list(DP_SEQS)
+    return cfg
+
+
+def dp_nccl_phase(torch, root: str, data: str) -> dict:
+    """main.run with HUPR_MULTIHOST=1 in a world of one on NCCL (its own
+    process: RANK 0, WORLD_SIZE 1, a MASTER_PORT), one epoch over the
+    DP_SEQS sequences from a seeded checkpoint.pth, against the plain
+    Runner's epoch from the same file in the same process: the group was
+    nccl, the warm-up ran, and the losses, weights, each leaf's update and
+    the val AP hold at the runner bars. Returns the readings."""
+    (r,) = dp_spawn("nccl", root, 1, env={
+        "MASTER_ADDR": "127.0.0.1", "MASTER_PORT": str(free_port())},
+        opts={"data": data})
+    out, ok = hold_readings(
+        torch, (r["losses"], r["losses_plain"]),
+        (_StateDict(r["state"]), _StateDict(r["state_plain"])), r["w0"])
+    out.update(backend=r.get("backend"), world=r.get("world"),
+               val_ap=r["ap"], val_ap_plain=r["ap_plain"],
+               group_left=r["group_left"],
+               max_abs_err=max((v - r["state_plain"][k]).abs().max().item()
+                               for k, v in r["state"].items()
+                               if v.is_floating_point()))
+    print(json.dumps({"parallel_nccl_world1": out}), flush=True)
+    if not (ok and r.get("backend") == "nccl" and r.get("world") == 1
+            and not r["group_left"]
+            and abs(r["ap"] - r["ap_plain"]) <= PROTOCOL_ATOL):
+        raise AssertionError(f"parallel nccl: {out}")
+    return out
+
+
+def parallel_phase(torch, card: str) -> dict:
+    """The data-parallel and multi-process path on the one card:
+    dp_step_phase for the flagship float32 step and the fast recipe's
+    raw-ADC chunk step in float32 and bfloat16, dp_runner_phase,
+    dp_nccl_phase. Prints the `parallel` line; returns its readings."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="hupr_parallel_")
+    try:
+        t0 = time.perf_counter()
+        result = {"card": card}
+        for kind in ("f32", "f32_chunk", "bf16_chunk"):
+            result[kind] = dp_step_phase(torch, kind, root)
+        data = write_sequence(root, RUNNER_FRAMES, seqs=DP_SEQS)
+        result["runner"] = dp_runner_phase(torch, root, data)
+        result["nccl_world1"] = dp_nccl_phase(torch, root, data)
+        result["seconds"] = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"dp_shared_card_ms_per_step "
+          f"{result['f32']['dp_shared_card_ms_per_step']:.2f} (two ranks "
+          f"on one card, 10 rows each, not a scaling number) beside the "
+          f"one-rank step {result['f32']['one_rank_ms_per_step']:.2f} "
+          f"(19 rows)", flush=True)
+    print(json.dumps({"parallel": result}), flush=True)
+    return result
+
+
+def dp_worker(argv) -> int:
+    """A rank of the parallel phase: `--dp-worker job root rank world
+    rendezvous opts`. Saves its result to root/<job>-rank<rank>.pt."""
+    import torch
+    import torch.distributed as dist
+
+    job, root, rank, world, rdv, opts = argv
+    rank, world, opts = int(rank), int(world), json.loads(opts)
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from hupr_tpu_torch.parallel import make_mesh, multihost
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if job == "nccl":
+        result = dp_nccl_worker(torch, root, opts["data"])
+    else:
+        multihost.initialize(backend="gloo", init_method=f"file://{rdv}")
+        try:
+            if job == "runner":
+                result = dp_runner_worker(torch, root)
+            else:
+                kind = job[len("step_"):]
+                w0 = torch.load(os.path.join(root, f"w0-{kind}.pt"))
+                result = dp_run(torch, kind, make_mesh(), w0,
+                                opts["steps"], opts["spatial"])
+        finally:
+            dist.destroy_process_group()
+    torch.save(result, os.path.join(root, f"{job}-rank{rank}.pt"))
+    return 0
+
+
+def dp_runner_worker(torch, root: str) -> dict:
+    """main.run(HUPR_MULTIHOST=1) in this rank's group: the losses each
+    epoch logged, the checkpoint files this rank wrote, the val APs, the
+    launches, the seconds of the run."""
+    from hupr_tpu_torch.engine import runner as runner_mod
+    from hupr_tpu_torch.engine.checkpoint import AsyncCheckpointer
+    from hupr_tpu_torch.main import run
+    from hupr_tpu_torch.ops import attention
+
+    os.environ["HUPR_MULTIHOST"] = "1"
+    os.chdir(root)
+    losses, saves = [], []
+    save_list, save = runner_mod.Runner.save_loss_list, AsyncCheckpointer.save
+
+    def logged(self, epoch, loss_list, mode):
+        losses.extend(loss_list)
+        return save_list(self, epoch, loss_list, mode)
+
+    def saved(self, paths, *args, **kwargs):
+        saves.extend(os.path.basename(p) for p in paths)
+        return save(self, paths, *args, **kwargs)
+
+    runner_mod.Runner.save_loss_list = logged
+    AsyncCheckpointer.save = saved
+    attention.reset_launch_counts()
+    runner, seconds = timed(torch, lambda: run(
+        runner_args("mh"), dp_runner_config(os.path.join(root, "data"))))
+    return {"losses": losses, "saves": saves, "aps": runner.epoch_aps,
+            "seconds": seconds,
+            "launches": {"attention_fwd": attention.attention_fwd.launches,
+                         "attention_bwd": attention.attention_bwd.launches}}
+
+
+def dp_nccl_worker(torch, root: str, data: str) -> dict:
+    """The plain Runner's epoch, then main.run's with HUPR_MULTIHOST=1
+    (a world of one from the environment: nccl on the card), from the same
+    seeded checkpoint.pth, in this process."""
+    import torch.distributed as dist
+
+    from hupr_tpu_torch.main import run
+    from hupr_tpu_torch.parallel import multihost
+
+    os.chdir(root)
+    cfg = dp_runner_config(data)
+    cfg.TRAINING.epochs = 1
+    for name in ("plain", "nccl"):
+        seed_checkpoint(cfg, name)
+    w0 = torch.load(os.path.join("logs", "plain", "checkpoint.pth"),
+                    weights_only=True)["model_state_dict"]
+    seen = {}
+    warmup = multihost.warmup_device_collectives
+
+    def warm(mesh):
+        if multihost.is_initialized():
+            seen.update(backend=dist.get_backend(), world=mesh.world)
+        return warmup(mesh)
+
+    multihost.warmup_device_collectives = warm
+    os.environ.pop("HUPR_MULTIHOST", None)
+    plain = run(runner_args("plain"), cfg)
+    os.environ["HUPR_MULTIHOST"] = "1"
+    nccl = run(runner_args("nccl"), cfg)
+    out = {"w0": w0, "ap": nccl.epoch_aps[-1], "ap_plain": plain.epoch_aps[-1],
+           "group_left": multihost.is_initialized(), **seen}
+    for key, name in (("", "nccl"), ("_plain", "plain")):
+        with open(os.path.join("logs", name, "train_loss_list_0.json")) as fp:
+            out["losses" + key] = json.load(fp)
+        out["state" + key] = torch.load(
+            os.path.join("logs", name, "checkpoint.pth"),
+            weights_only=True)["model_state_dict"]
+    return out
+
+
 def kernel_entry(name, mode, source, replaces, launches, rows, scale, per,
                  **extra):
     """One object of the `kernels` line: times and bounds summed over
@@ -2972,6 +3531,8 @@ def main() -> int:
     ln = learn_phase(torch, smi)
     lf = learn_fast_phase(torch, smi)
     fe = front_end_phase(torch, smi)
+    torch.cuda.empty_cache()
+    par = parallel_phase(torch, smi)
     backward_passes(torch)
 
     shapes = "4 at each (N, C) of (256, 256), (1024, 128), (4096, 64)"
@@ -2980,6 +3541,10 @@ def main() -> int:
     fwd_src, bwd_src = "hupr_tpu/ops/attention.py:90", \
         "hupr_tpu/ops/attention.py:188"
     per_frame = f"one streamed frame: 12 launches, {shapes}, B=1"
+
+    def by_rank(name, runs, key):
+        """The parallel phase's launches of `key`, one entry per rank."""
+        return {f"{name}_rank{r}": lc[key] for r, lc in enumerate(runs)}
 
     def b1(mode):
         return {key: 4 * sum(r[key] for r in b1_rows if r["mode"] == mode)
@@ -3001,7 +3566,16 @@ def main() -> int:
                           st["f32"]["sequence_wrapper_launches"]["f32"],
                       "audit":
                           fe["audit"]["attention_fwd_launches"]["f32"],
-                      "live": fe["live"]["attention_fwd_launches"]["f32"]},
+                      "live": fe["live"]["attention_fwd_launches"]["f32"],
+                      **by_rank("parallel_step",
+                                par["f32"]["launches_by_rank"],
+                                "attention_fwd"),
+                      **by_rank("parallel_chunk",
+                                par["f32_chunk"]["launches_by_rank"],
+                                "attention_fwd"),
+                      **by_rank("parallel_runner",
+                                par["runner"]["launches_by_rank"],
+                                "attention_fwd")},
                      rows, 4, per_request, stream_B1=b1("f32"),
                      stream_traced=st["f32"][
                          "traced_attention_fwd_kernels"],
@@ -3015,7 +3589,16 @@ def main() -> int:
                      {"serve": 0, "train": tr["attention_bwd_launches"],
                       "runner": rr["launches"]["attention_bwd"],
                       "learn":
-                          ln["pallas"]["launches"]["attention_bwd"]["f32"]},
+                          ln["pallas"]["launches"]["attention_bwd"]["f32"],
+                      **by_rank("parallel_step",
+                                par["f32"]["launches_by_rank"],
+                                "attention_bwd"),
+                      **by_rank("parallel_chunk",
+                                par["f32_chunk"]["launches_by_rank"],
+                                "attention_bwd"),
+                      **by_rank("parallel_runner",
+                                par["runner"]["launches_by_rank"],
+                                "attention_bwd")},
                      bwd_rows, 4, per_step,
                      body="attention_bwd_dq_tf32, attention_bwd_dkdm_tf32 "
                           "(3xTF32 on mma.sync, csrc/tf32.cuh)",
@@ -3033,12 +3616,18 @@ def main() -> int:
                             "runner_fast": fast["attention_fwd"]["bf16"],
                             "train_max": tm["attention_fwd_launches"],
                             "learn_fast": lf["pallas"]["launches"][
-                                "attention_fwd"]["bf16"]}
+                                "attention_fwd"]["bf16"],
+                            **by_rank("parallel_chunk",
+                                      par["bf16_chunk"]["launches_by_rank"],
+                                      "attention_fwd")}
             bwd_launches = {"train_bf16": tr16["attention_bwd_launches"],
                             "runner_fast": fast["attention_bwd"]["bf16"],
                             "train_max": tm["attention_bwd_launches"],
                             "learn_fast": lf["pallas"]["launches"][
-                                "attention_bwd"]["bf16"]}
+                                "attention_bwd"]["bf16"],
+                            **by_rank("parallel_chunk",
+                                      par["bf16_chunk"]["launches_by_rank"],
+                                      "attention_bwd")}
             extra["stream_B1"] = b1("bf16")
             extra["stream_traced"] = \
                 st["bf16"]["traced_attention_fwd_kernels"]
@@ -3077,4 +3666,5 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(dp_worker(sys.argv[2:]) if sys.argv[1:2] == ["--dp-worker"]
+             else main())

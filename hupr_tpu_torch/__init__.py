@@ -14,13 +14,17 @@ NVIDIA Hopper (sm_90a).
                     DCA1000 capture (data.capture, native/dca1000.cc)
   preprocessing     the preprocessing CLI: raw captures -> .npy cubes
   scripts           live_serve (capture -> streaming poses), parity_audit
-                    (model_best.pth -> COCO AP), the microbenchmark and
-                    the remat and batch-size scripts
+                    (model_best.pth -> COCO AP), the microbenchmark, the
+                    remat and batch-size scripts, and dp_scaling (the
+                    data-parallel step over several cards)
   models            HuPRNet (MNet, Encoder3D, MSCSA decoder, PRGCN) with the
                     reference's state_dict keys; convert.state_dict_from_jax
   ops               radar DSP (torch.fft), normalize, resize, Gaussian
                     targets, BCE, argmax decode, the MSCSA attention and
                     its forward and backward CUDA kernels (csrc/)
+  parallel          data parallel and multi-process runs over
+                    torch.distributed (HUPR_MULTIHOST=1, one process per
+                    card): batch blocks, synced BN, rank-file eval
   config            the YAML schema of hupr_tpu.config, the CLI's flags
 
 The package imports torch and numpy only: no JAX, nothing of hupr_tpu, and

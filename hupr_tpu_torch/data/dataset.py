@@ -4,9 +4,8 @@ JAX package).
 
 The batches are the JAX package's, value for value, from the same seed: the
 same window table, the same seed- and epoch-keyed permutation, the same
-per-row sampling stream. What differs: the wire dtype is a torch dtype
-(utils/transfer.py), and the multi-host process slicing of BatchLoader is
-not ported (ROADMAP A9).
+per-row sampling stream, the same process slicing in a multi-process run.
+What differs: the wire dtype is a torch dtype (utils/transfer.py).
 
 Parity: HuPR3D_horivert (the reference's datasets/dataset.py).
   * Window indices (the reference's per-__getitem__ boundary-clamp loop,
@@ -292,11 +291,19 @@ class BatchLoader:
 
     `workers` > 1 assembles the samples of a batch with a thread pool
     (reference SETUP.numWorkers semantics, tools/run.py:21,28: .npy reads
-    and memcpy release the GIL, so threads overlap IO)."""
+    and memcpy release the GIL, so threads overlap IO).
+
+    Multi-process (`process=(pid, nproc)`, `padded_rows=` the global
+    padded batch): every process computes the SAME epoch permutation
+    (seed- and epoch-keyed rng, apart from the per-row sampling stream)
+    and assembles only its contiguous row block of each padded global
+    batch; batches then carry a "trueRows" count for the global loss
+    mask. A process never touches another process's rows."""
 
     def __init__(self, dataset: HuPRDataset, batch_size: int,
                  shuffle: bool = False, seed: int = 0, prefetch: int = 2,
                  drop_last: bool = False, workers: int = 1,
+                 process=None, padded_rows: Optional[int] = None,
                  transfer_dtype: torch.dtype = torch.float32):
         """transfer_dtype: wire format for the hori/vert planes
         (SETUP.transferDtype via utils/transfer.py; the cast happens in the
@@ -308,6 +315,12 @@ class BatchLoader:
         self.drop_last = drop_last
         self.seed = seed
         self._epoch = 0
+        self.process = process
+        if process is not None:
+            if padded_rows is None or padded_rows % process[1] != 0:
+                raise ValueError(
+                    "process mode needs padded_rows divisible by nproc")
+        self.padded_rows = padded_rows
         self.prefetch = prefetch
         self.workers = max(1, int(workers))
         self._pool = None
@@ -350,11 +363,13 @@ class BatchLoader:
 
     def _batches(self) -> Iterator[dict]:
         n = len(self.dataset)
-        # the permutation rng is keyed by (seed, epoch) only, the per-row
-        # sampling-ratio stream by (seed, epoch, process 0): the JAX
-        # package's streams, so both draw the same batches
+        # the permutation rng is keyed by (seed, epoch) only, so every
+        # process derives the same order; the per-row sampling-ratio stream
+        # by (seed, epoch, process): the JAX package's streams, so both
+        # draw the same batches
+        pid = self.process[0] if self.process else 0
         order_rng = np.random.default_rng((self.seed, self._epoch))
-        sample_rng = np.random.default_rng((self.seed, self._epoch, 0))
+        sample_rng = np.random.default_rng((self.seed, self._epoch, pid))
         self._epoch += 1
         order = np.arange(n)
         if self.shuffle:
@@ -363,9 +378,21 @@ class BatchLoader:
             idx = order[start:start + self.batch_size]
             if self.drop_last and len(idx) < self.batch_size:
                 return
+            true_b = len(idx)
             indices = [self.dataset.sample_index(int(i), sample_rng)
                        for i in idx]
-            yield self._assemble(indices)
+            if self.process is None:
+                yield self._assemble(indices)
+                continue
+            # pad to the global row count by repeating the last resolved
+            # sample (shard_batch's padding, done per process), then
+            # assemble only this process's contiguous block
+            pid_, nproc = self.process
+            padded = indices + [indices[-1]] * (self.padded_rows - true_b)
+            rows = self.padded_rows // nproc
+            batch = self._assemble(padded[pid_ * rows:(pid_ + 1) * rows])
+            batch["trueRows"] = true_b
+            yield batch
 
     def __iter__(self) -> Iterator[dict]:
         from hupr_tpu_torch.utils.prefetch import stop_aware_put

@@ -28,8 +28,17 @@ planes read from .npy files, and the step decodes it and runs the radar
 cube DSP on the card before the encode: no .npy hop, and gradients equal
 to the cube-fed step's.
 
-One card only: meshes, padded axes (`pad_multiple` > 1) and multi-host
-blocks (`process=`) raise NotImplementedError (ROADMAP A9).
+Data parallel over processes (`mesh=` of more than one rank,
+`ChunkTrainLoader(pad_multiple=world, process=(rank, world))`): both
+shipped axes, the frames and the window rows, pad to a multiple of the
+world size, and each rank holds its contiguous block of both. It encodes
+its own frames through MNet, which has no BN, then every rank's encoded
+maps are exchanged (parallel.mesh.gather_blocks: the all-gather GSPMD
+inserts in the JAX package, differentiable, so each frame's gradient
+flows back to the rank that encoded it) and each rank gathers its windows
+by `rel`. The pose network then runs with BN synced over the real rows of
+every rank, and the gradients are summed across ranks, as in
+steps.make_train_step.
 """
 
 from __future__ import annotations
@@ -39,23 +48,20 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from hupr_tpu_torch.engine import steps
 from hupr_tpu_torch.engine.pipeline import cube_chirp_input
-from hupr_tpu_torch.engine.steps import TrainState, _real_rows
+from hupr_tpu_torch.models.blocks import synced_batch_stats
 from hupr_tpu_torch.ops.dsp import (RadarParams, decode_dca1000,
                                     radar_cube_frames)
 from hupr_tpu_torch.ops.heatmap import bce_loss, generate_target_batch
 from hupr_tpu_torch.ops.normalize import normalize_radar_window
+from hupr_tpu_torch.parallel.mesh import gather_blocks
 from hupr_tpu_torch.utils.device import float32_math, resolve_device
 from hupr_tpu_torch.utils.prefetch import stop_aware_put
 from hupr_tpu_torch.utils.transfer import cast_for_transfer
 
 # the leaves of a chunk batch that go to the card (utils/prefetch.py)
 CHUNK_KEYS = ("hori", "vert", "rel", "jointsGroup", "mask")
-
-
-def _one_card(what: str):
-    raise NotImplementedError(f"{what}: data-parallel and multi-host chunk "
-                              f"training are not ported (ROADMAP A9)")
 
 
 def chunk_table(windows: np.ndarray, duration: int, batch_size: int,
@@ -132,13 +138,19 @@ def make_chunk_train_step(model, tx: torch.optim.Optimizer,
     The padded rows are dropped before the pose network: the JAX package
     keeps them out of BN and the loss with the mask, which for a 0/1 mask
     is the same. The step runs in train mode, in the model's compute dtype
-    and in full float32 elsewhere (TF32 off for the call)."""
-    if mesh is not None:
-        _one_card("make_chunk_train_step(mesh=)")
+    and in full float32 elsewhere (TF32 off for the call).
+
+    With a `mesh` of more than one rank the leaves are this rank's blocks
+    of the padded frame and row axes (ChunkTrainLoader process mode), `rel`
+    indexes the global frame axis, and every window row runs under its
+    mask: the encoded maps are exchanged across ranks, BN is synced and
+    the loss is divided by the global real count, and the gradients and
+    metrics are summed across ranks (module docstring)."""
+    dp = steps._data_parallel(mesh)
     num_keypoints, heatmap_size, img_size = geometry
     encode_frames = frame_prep if frame_prep is not None else cube_frame_prep
 
-    def step(state: TrainState, batch, lr, alpha):
+    def step(state: steps.TrainState, batch, lr, alpha):
         del alpha  # annealing is gated off (lossDecay == -1) in chunk mode
         if state.model is not model or state.optimizer is not tx:
             raise ValueError("state holds another model or optimizer than "
@@ -149,10 +161,15 @@ def make_chunk_train_step(model, tx: torch.optim.Optimizer,
             return torch.as_tensor(batch[key], device=device)
 
         rel, joints = on("rel").to(torch.int64), on("jointsGroup")
-        true_b = batch.get("trueB")
-        rows = slice(0, int(true_b)) if true_b is not None \
-            else _real_rows(on("mask").reshape(-1))
-        rel, joints = rel[rows], joints[rows]
+        mask = count = None
+        if dp:
+            mask = on("mask").reshape(-1).to(torch.float32)
+            count = steps._global_count(mask)
+        else:
+            true_b = batch.get("trueB")
+            rows = slice(0, int(true_b)) if true_b is not None \
+                else steps._real_rows(on("mask").reshape(-1))
+            rel, joints = rel[rows], joints[rows]
         for group in tx.param_groups:
             group["lr"] = lr
         was_training = model.training
@@ -162,6 +179,10 @@ def make_chunk_train_step(model, tx: torch.optim.Optimizer,
                 ra, re = model.chirp_maps(encode_frames(on("hori")),
                                           encode_frames(on("vert")))
                 ra, re = ra[:, 0], re[:, 0]             # (F, R, A, Fc)
+                if dp:
+                    # every rank's frames, in rank order: one exchange
+                    ra, re = gather_blocks(torch.stack([ra, re], 1),
+                                           mesh).unbind(1)
                 # window b = encoded frames rel[b, :]: the clamped
                 # reference window, gathered on the card
                 idx = rel.reshape(-1)
@@ -169,16 +190,22 @@ def make_chunk_train_step(model, tx: torch.optim.Optimizer,
                                                        *ra.shape[1:])
                 re_w = re.index_select(0, idx).reshape(*rel.shape,
                                                        *re.shape[1:])
-                heatmap, gcn = model.pose_from_maps(ra_w, re_w)
+                with synced_batch_stats(mask):
+                    heatmap, gcn = model.pose_from_maps(ra_w, re_w)
                 targets, _ = generate_target_batch(
                     joints, num_keypoints=num_keypoints,
                     heatmap_size=heatmap_size, img_size=img_size)
                 k, h = targets.shape[1], targets.shape[2]
-                loss1 = bce_loss(heatmap.reshape(-1, k, h, h), targets)
-                loss2 = bce_loss(gcn.reshape(-1, k, h, h), targets)
+                loss1 = bce_loss(heatmap.reshape(-1, k, h, h), targets,
+                                 mask, count)
+                loss2 = bce_loss(gcn.reshape(-1, k, h, h), targets, mask,
+                                 count)
                 loss = loss1 + loss2
                 tx.zero_grad(set_to_none=True)
                 loss.backward()
+                if dp:
+                    loss1, loss2, loss = steps._reduce_gradients(
+                        model, (loss1, loss2, loss))
                 tx.step()
         finally:
             model.train(was_training)
@@ -215,10 +242,11 @@ class ChunkTrainLoader:
                  shuffle: bool = True, prefetch: int = 2,
                  pad_multiple: int = 1,
                  transfer_dtype: torch.dtype = torch.float32, process=None):
-        if pad_multiple > 1:
-            _one_card("ChunkTrainLoader(pad_multiple > 1)")
-        if process is not None:
-            _one_card("ChunkTrainLoader(process=)")
+        """`pad_multiple`: the world size. Both shipped axes (the frame
+        stack, the window rows) pad up to a multiple of it.
+        `process=(rank, world)`: this process assembles only its
+        contiguous block of both padded axes; every process derives the
+        same (seed, epoch)-keyed chunk order."""
         self.dataset = dataset
         self.batch_size = batch_size
         self.transfer_dtype = transfer_dtype
@@ -226,11 +254,21 @@ class ChunkTrainLoader:
         self.seed = seed
         self.shuffle = shuffle
         self.prefetch = prefetch
+        self.process = process
         self._epoch = 0
-        self.rows_pad = batch_size
+        m = max(1, int(pad_multiple))
+        self.rows_pad = batch_size + (-batch_size) % m
         self.chunks = chunk_table(dataset.windows, dataset.duration,
-                                  batch_size)
-        self.f_pad = batch_size + self.group - 1
+                                  batch_size, pad_rows_to=self.rows_pad)
+        f = batch_size + self.group - 1
+        self.f_pad = f + (-f) % m
+        if process is not None:
+            nproc = process[1]
+            if self.rows_pad % nproc or self.f_pad % nproc:
+                raise ValueError(
+                    f"process mode needs the padded axes (rows {self.rows_pad}"
+                    f", frames {self.f_pad}) divisible by nproc={nproc}; "
+                    f"pass pad_multiple = the world size")
 
     @staticmethod
     def applicable(dataset, cfg) -> bool:
@@ -245,27 +283,40 @@ class ChunkTrainLoader:
     def __len__(self) -> int:
         return len(self.chunks)
 
+    def _block(self, padded: int) -> tuple:
+        """This process's contiguous index block [lo, hi) of a padded
+        global axis (the whole axis in one process)."""
+        if self.process is None:
+            return 0, padded
+        pid, nproc = self.process
+        blk = padded // nproc
+        return pid * blk, (pid + 1) * blk
+
     def _window_rows(self, chunk: dict) -> dict:
-        """The window-axis leaves of one batch: rows past true_b repeat
-        the last real window, mask 0."""
+        """The window-axis leaves of one batch, this process's row block:
+        global rows past true_b repeat the last real window, mask 0."""
         ds = self.dataset
         true_b, row0 = chunk["true_b"], chunk["row0"]
+        r_lo, r_hi = self._block(self.rows_pad)
         joints = np.stack([ds.joints[row0 + min(r, true_b - 1)]
-                           for r in range(self.rows_pad)])
-        mask = (np.arange(self.rows_pad) < true_b).astype(np.float32)
-        return dict(rel=chunk["rel"], jointsGroup=joints, mask=mask,
-                    trueB=true_b, fPad=self.f_pad, rowsPad=self.rows_pad,
+                           for r in range(r_lo, r_hi)])
+        mask = (np.arange(r_lo, r_hi) < true_b).astype(np.float32)
+        return dict(rel=chunk["rel"][r_lo:r_hi], jointsGroup=joints,
+                    mask=mask, trueB=true_b, fPad=self.f_pad,
+                    rowsPad=self.rows_pad,
                     imageId=np.asarray(ds.image_ids[row0:row0 + true_b]))
 
     def _assemble(self, chunk: dict) -> dict:
-        """One copy of each distinct frame into (F_pad, C, 2, R, A, E)
-        stacks; pad frames repeat the last real frame (never gathered, but
-        they must stay finite: a zero gradient through a NaN activation
-        is still NaN)."""
+        """One copy of each distinct frame into this process's block of
+        the (F_pad, C, 2, R, A, E) stacks; pad frames repeat the last real
+        frame (never gathered, but they must stay finite: a zero gradient
+        through a NaN activation is still NaN)."""
         ds = self.dataset
         nf = chunk["n_frames"]
-        idx = [chunk["lo"] + min(g, nf - 1) for g in range(self.f_pad)]
-        shape = (self.f_pad, ds.num_frames, 2) + ds._inner_shape
+        f_lo, f_hi = self._block(self.f_pad)
+        # global frame g holds dataset frame lo + min(g, nf - 1)
+        idx = [chunk["lo"] + min(g, nf - 1) for g in range(f_lo, f_hi)]
+        shape = (f_hi - f_lo, ds.num_frames, 2) + ds._inner_shape
         out = {}
         for key, paths in (("hori", ds.paths_hori), ("vert", ds.paths_vert)):
             frames = ds._frames([paths[i] for i in idx])
@@ -338,25 +389,34 @@ class ADCChunkLoader(ChunkTrainLoader):
             adc_source.available(dataset.image_ids)
 
     def _assemble(self, chunk: dict) -> dict:
-        nf = min(chunk["n_frames"], self.f_pad)
+        ids = self.dataset.image_ids
+        nf = chunk["n_frames"]
+        f_lo, f_hi = self._block(self.f_pad)
+        real_n = max(0, min(f_hi, nf) - f_lo)   # real frames in the block
         out = {}
         for view in ("hori", "vert"):
-            arr = np.empty((self.f_pad, self.adc.frame_samples), np.int16)
-            self.adc.read_frames(self.dataset.image_ids, chunk["lo"], nf,
-                                 view, arr)
-            arr[nf:] = arr[nf - 1]          # clamp rows repeat the last
+            arr = np.empty((f_hi - f_lo, self.adc.frame_samples), np.int16)
+            if real_n > 0:
+                self.adc.read_frames(ids, chunk["lo"] + f_lo, real_n, view,
+                                     arr)
+                arr[real_n:] = arr[real_n - 1]   # clamp rows repeat the last
+            else:
+                # the whole block is clamp rows (a short chunk's tail)
+                self.adc.read_frames(ids, chunk["lo"] + nf - 1, 1, view,
+                                     arr[:1])
+                arr[1:] = arr[0]
             out[view] = arr
         out.update(self._window_rows(chunk))
         return out
 
 
 def device_put_chunk(batch: dict, device=None, mesh=None) -> tuple[dict, int]:
-    """One assembled chunk batch on the card (or `device`): its CHUNK_KEYS
-    leaves as tensors, rel as int64, and trueB. Returns (device_batch,
+    """One assembled chunk batch on the card (or `device`, or
+    `mesh.device`): its CHUNK_KEYS leaves as tensors, rel as int64, and
+    trueB. In a multi-process run the leaves are this process's blocks
+    (ChunkTrainLoader process mode) and stay so. Returns (device_batch,
     true_b)."""
-    if mesh is not None:
-        _one_card("device_put_chunk(mesh=)")
-    dev = resolve_device(device)
+    dev = mesh.device if mesh is not None else resolve_device(device)
     true_b = int(batch["trueB"])
     out = {k: torch.as_tensor(batch[k], device=dev) for k in CHUNK_KEYS}
     out["rel"] = out["rel"].to(torch.int64)

@@ -27,8 +27,17 @@ a step are read one step later, from copies started right after it
 (utils/prefetch.PendingFetch), so that reading them never waits for the
 step queued behind them.
 
-Not ported, and refused with NotImplementedError: multi-host runs
-(HUPR_MULTIHOST, ROADMAP A9).
+In a multi-process run (HUPR_MULTIHOST=1, main.run; one process per
+card, parallel/multihost.py), as the JAX Runner does: every process loads
+only its rows of each padded global batch (BatchLoader / ChunkTrainLoader
+process mode) and takes the data-parallel step (engine/steps.py); the
+startup checks the shared logs dir, warms the device collectives up and
+makes every process agree on the dataset sizes, the resume, and the chunk
+and raw-ADC fallbacks, raising on all of them together on a disagreement;
+eval needs sequence mode, each process scores its round-robin share of the
+sequences on its own card and writes a rank file, process 0 merges and
+scores it, and the AP is broadcast; process 0 alone writes checkpoints and
+loss lists. A world of one runs the single-card loop.
 """
 
 from __future__ import annotations
@@ -50,11 +59,14 @@ from hupr_tpu_torch.engine.chunk_train import (CHUNK_KEYS, ADCChunkLoader,
                                                make_adc_chunk_train_step,
                                                make_chunk_train_step)
 from hupr_tpu_torch.engine.logger import Logger
-from hupr_tpu_torch.engine.seq_eval import SequenceEvaluator
+from hupr_tpu_torch.engine.seq_eval import (SequenceEvaluator,
+                                            sequence_groups)
 from hupr_tpu_torch.engine.steps import (TrainState, make_eval_step,
                                          make_optimizer, make_train_step)
 from hupr_tpu_torch.models.hupr import build_model
-from hupr_tpu_torch.utils.device import float32_math, resolve_device
+from hupr_tpu_torch.parallel import multihost
+from hupr_tpu_torch.parallel.mesh import make_mesh, replicate_state
+from hupr_tpu_torch.utils.device import float32_math
 from hupr_tpu_torch.utils.prefetch import PendingFetch, device_prefetch
 from hupr_tpu_torch.utils.transfer import transfer_dtype
 
@@ -72,26 +84,18 @@ def xywh_to_center_scale(x, y, w, h, aspect_ratio=1.0, pixel_std=200.0):
     return center, scale
 
 
-def refuse_unported(cfg, args) -> None:
-    """Raise NotImplementedError, naming the ROADMAP item that owns it,
-    for what the environment asks and the port lacks, instead of running
-    another path: multi-host runs (HUPR_MULTIHOST=1)."""
-    if os.environ.get("HUPR_MULTIHOST") == "1":
-        raise NotImplementedError(
-            "HUPR_MULTIHOST=1: multi-host runs are not ported (ROADMAP A9)")
-
-
 class Runner:
     """`args` carries the CLI's fields (seed, dir, visDir, eval,
     sampling_ratio, keypoints; optionally evalPhase). Logs and
     checkpoints go to ./logs/<dir>. Runs on the card unless `device` says
-    otherwise."""
+    otherwise; in a process group, on this process's card
+    (parallel.make_mesh) or `mesh.device`."""
 
-    def __init__(self, args, cfg, device=None):
-        refuse_unported(cfg, args)
+    def __init__(self, args, cfg, device=None, mesh=None):
         self.args = args
         self.cfg = cfg
-        self.device = resolve_device(device)
+        self.mesh = mesh if mesh is not None else make_mesh(device)
+        self.device = self.mesh.device
         np.random.seed(args.seed)
         torch.manual_seed(args.seed)
         self.dir = os.path.join("./logs", args.dir)
@@ -108,12 +112,26 @@ class Runner:
         self.start_epoch = 0
         self.epoch_aps = []     # each trained epoch's val AP, in order
 
+        # multi-process: every process assembles only its block of each
+        # padded global batch. The checks run before any step, and the
+        # collective warm-up while the processes are still in step
+        self.n_proc, self.pid = self.mesh.world, self.mesh.rank
+        mh = {}
+        if self.n_proc > 1:
+            mh = dict(process=(self.pid, self.n_proc),
+                      padded_rows=t.batchSize + (-t.batchSize) % self.n_proc)
+            # the rank-file eval merge and process-0 checkpoints need a
+            # filesystem every process shares: fail now, not after epoch 0
+            multihost.assert_shared_dir(self.dir)
+        multihost.warmup_device_collectives(self.mesh)
+
         self.model = build_model(cfg, self.device)
         self.tx = make_optimizer(cfg, self.model)
-        self.state = TrainState(self.model, self.tx)
+        self.state = replicate_state(TrainState(self.model, self.tx),
+                                     self.mesh)
         geometry = (d.numKeypoints, d.heatmapSize, d.imgSize)
         self.train_step = make_train_step(self.model, self.tx, t.lossDecay,
-                                          geometry)
+                                          geometry, mesh=self.mesh)
         self.eval_step = make_eval_step(self.model, t.lossDecay, geometry)
         self._seq_eval = None   # built at the first sequence-mode eval
 
@@ -134,15 +152,16 @@ class Runner:
                 else:
                     self._chunk_loader = ChunkTrainLoader(
                         self.train_set, t.batchSize, seed=args.seed,
-                        shuffle=True, transfer_dtype=wire)
+                        shuffle=True, pad_multiple=self.n_proc,
+                        transfer_dtype=wire, process=mh.get("process"))
                     self._chunk_step = make_chunk_train_step(
-                        self.model, self.tx, geometry)
+                        self.model, self.tx, geometry, mesh=self.mesh)
             if self._chunk_loader is None:
                 # only when chunk mode does not drive training
                 self.train_loader = BatchLoader(
                     self.train_set, t.batchSize, shuffle=True,
                     seed=args.seed, workers=cfg.SETUP.numWorkers,
-                    transfer_dtype=wire)
+                    transfer_dtype=wire, **mh)
                 if not chunk and \
                         ChunkTrainLoader.applicable(self.train_set, cfg):
                     # the JAX package's hint to input-bound classic runs
@@ -162,6 +181,20 @@ class Runner:
                                        shuffle=False, seed=args.seed,
                                        workers=cfg.SETUP.numWorkers,
                                        transfer_dtype=wire)
+        if self.n_proc > 1:
+            # per-host copies of the data must describe the same global
+            # dataset: a divergent annotation file gives processes
+            # different batch counts, and one would issue collectives the
+            # others never join. Fail fast with the per-process sizes
+            multihost.assert_agreement(
+                "train dataset size",
+                -1.0 if self.train_set is None else float(
+                    len(self.train_set)))
+            multihost.assert_agreement(
+                f"{self.test_set.phase} dataset size",
+                float(len(self.test_set)))
+            # multi-process eval needs sequence mode: fail at startup
+            self._require_sequence_eval()
 
         # steps an epoch under the loader that drives training (chunk mode
         # has ceil(duration / B) chunks a sequence, more than ceil(N / B)
@@ -196,16 +229,21 @@ class Runner:
         d = cfg.DATASET
         rp = d.radar_params()       # raises on a geometry mismatch
         adc = ADCFrameSource(d.adcDir, rp)
-        if not ADCChunkLoader.applicable(self.train_set, cfg, adc):
+        ok = ADCChunkLoader.applicable(self.train_set, cfg, adc)
+        # one process falling back to cube chunks would run another
+        # program: agree, or raise on every process together
+        multihost.assert_agreement("adc chunk availability", float(ok))
+        if not ok:
             print("==========>chunkSource adc requested but the captures "
                   f"under DATASET.adcDir={d.adcDir!r} don't cover the "
                   "train split — cube chunks")
             return False
+        process = (self.pid, self.n_proc) if self.n_proc > 1 else None
         self._chunk_loader = ADCChunkLoader(
             self.train_set, cfg.TRAINING.batchSize, adc, seed=args.seed,
-            shuffle=True)
+            shuffle=True, pad_multiple=self.n_proc, process=process)
         self._chunk_step = make_adc_chunk_train_step(
-            self.model, self.tx, geometry, radar_params=rp,
+            self.model, self.tx, geometry, mesh=self.mesh, radar_params=rp,
             num_frames=d.numFrames)
         return True
 
@@ -228,13 +266,33 @@ class Runner:
         return (getattr(self.cfg.TEST, "sequenceEval", True)
                 and SequenceEvaluator.applicable(self.test_set, self.cfg))
 
+    def _require_sequence_eval(self):
+        if not self._sequence_eval_applicable():
+            raise RuntimeError(
+                "multi-host eval needs sequence mode (TEST.sequenceEval on, "
+                "sampling_ratio 1, lossDecay -1, full-duration sequences)")
+
     # ---------------- checkpoints ----------------
 
     def load_model_weight(self, mode: str):
         """Load ./logs/<dir>/<mode>.pth: weights, and the optimizer's state
         when the file has one. In train mode, resume at the saved epoch,
-        with its best AP and learning rate (tools/base.py:106-122)."""
+        with its best AP and learning rate (tools/base.py:106-122). In a
+        multi-process run every process must see the same file, and the
+        state is then made rank 0's (parallel.replicate_state)."""
         path = find_checkpoint(self.dir, mode)
+        if self.n_proc > 1:
+            # every process must make the same resume decision: one that
+            # cannot see the checkpoint would keep its fresh weights and
+            # run another number of epochs of collectives. allgather, so
+            # that a disagreement raises on every process together
+            found = multihost.allgather_scalar(0.0 if path is None else 1.0)
+            if any(f != found[0] for f in found):
+                missing = [i for i, f in enumerate(found) if not f]
+                raise RuntimeError(
+                    f"checkpoint visibility differs across hosts: process(es) "
+                    f"{missing} did not find a '{mode}' checkpoint the others "
+                    f"did — the logs dir must be a shared filesystem")
         if path is None:
             print("==========>Train the model from scratch")
             return
@@ -249,11 +307,23 @@ class Runner:
                 # saved learning rate, as the reference's
                 # optimizer.load_state_dict does (tools/base.py:114)
                 self.lr = lr
+        if self.n_proc > 1:
+            # a stale copy on one host would desynchronize start_epoch
+            epochs = multihost.allgather_scalar(float(epoch))
+            if any(int(e) != int(epochs[0]) for e in epochs):
+                raise RuntimeError(
+                    f"checkpoint epoch differs across hosts: per-process "
+                    f"epochs {[int(e) for e in epochs]}")
+        replicate_state(self.state, self.mesh)
 
     def save_model_weight(self, epoch: int, acc: float):
         """The retention of tools/base.py:75-90 (best / latest / every 5),
         one device-to-host copy for all files, written on a background
-        thread."""
+        thread. In a multi-process run the replicas are equal, and process
+        0 alone writes."""
+        if self.pid != 0:
+            self.logger.is_best_acc_ap(acc)   # keep best-AP tracking synced
+            return
         paths = []
         if self.logger.is_best_acc_ap(acc):
             print("==========>Save the best model...")
@@ -266,6 +336,8 @@ class Runner:
                                self.logger.show_best_ap(), lr=self.lr)
 
     def save_loss_list(self, epoch: int, loss_list, mode: str):
+        if self.pid != 0:
+            return
         path = os.path.join(self.dir, f"{mode}_loss_list_{epoch}.json")
         with open(path, "w") as fp:
             json.dump(loss_list, fp)
@@ -322,13 +394,23 @@ class Runner:
     def _eval_batches(self):
         """Sequence mode (windows assembled on the card,
         engine/seq_eval.py) when the split allows it and TEST.sequenceEval
-        is on; classic otherwise."""
+        is on; classic otherwise. In a multi-process run each process
+        evaluates its round-robin share of the sequences on its own card
+        (eval() merges the rank files)."""
         self._eval_len = len(self.test_set)
+        if self.n_proc > 1:
+            self._require_sequence_eval()
         if self._sequence_eval_applicable():
             if self._seq_eval is None:
                 self._seq_eval = SequenceEvaluator(
                     self.model, self.cfg, adc_source=self._adc_eval_source())
-            return self._seq_eval.eval_batches(self.test_set)
+            groups = None
+            if self.n_proc > 1:
+                groups = sequence_groups(
+                    self.test_set.image_ids)[self.pid::self.n_proc]
+                # the progress line tracks this process's share
+                self._eval_len = sum(length for _, length in groups)
+            return self._seq_eval.eval_batches(self.test_set, groups)
         return self._classic_eval_batches()
 
     def _adc_eval_source(self):
@@ -340,8 +422,10 @@ class Runner:
         d = self.cfg.DATASET
         rp = d.radar_params()       # raises on a geometry mismatch
         adc = ADCFrameSource(d.adcDir, rp)
-        if not SequenceEvaluator.adc_applicable(self.test_set, self.cfg,
-                                                adc):
+        ok = SequenceEvaluator.adc_applicable(self.test_set, self.cfg, adc)
+        # a process falling back to cube planes would run another encode
+        multihost.assert_agreement("adc eval availability", float(ok))
+        if not ok:
             print("==========>sequenceSource adc requested but the captures "
                   f"under DATASET.adcDir={d.adcDir!r} don't cover the "
                   "test split — cube planes")
@@ -366,7 +450,8 @@ class Runner:
 
     def eval(self, visualization: bool = True, epoch: int = -1) -> float:
         """Evaluate the split (val in train mode, test in eval mode):
-        write its keypoints JSON and return its AP."""
+        write its keypoints JSON and return its AP (process 0's, on every
+        process, in a multi-process run)."""
         loss_list: list = []
         save_preds: list = []
         batches = self._eval_batches()   # also sets self._eval_len
@@ -386,10 +471,31 @@ class Runner:
             if pending is not None:
                 self._consume_eval_batch(pending, loss_list, save_preds,
                                          visualization, epoch)
+        if self.n_proc > 1:
+            return self._merge_eval(save_preds)
         self.write_keypoints(save_preds)
         if self.args.keypoints:
             self.test_set.evaluate_each(self.dir)
         return self.test_set.evaluate(self.dir)
+
+    def _merge_eval(self, save_preds: list) -> float:
+        """Multi-process eval's end: every process writes its share to a
+        rank file; process 0 merges them, runs the OKS evaluator, and its
+        AP is broadcast, so that best-model tracking agrees everywhere."""
+        phase = self.test_set.phase
+        with open(multihost.rank_result_path(self.dir, phase), "w") as fp:
+            json.dump(save_preds, fp)
+        multihost.barrier("hupr_eval_results")
+        acc_ap = 0.0
+        if self.pid == 0:
+            # the evaluator reads f"{phase}_results.json"
+            multihost.merge_rank_results(
+                self.dir, phase,
+                os.path.join(self.dir, f"{phase}_results.json"))
+            if self.args.keypoints:
+                self.test_set.evaluate_each(self.dir)
+            acc_ap = self.test_set.evaluate(self.dir)
+        return multihost.broadcast_scalar(acc_ap)
 
     # ---------------- train (run.py:65-86) ----------------
 

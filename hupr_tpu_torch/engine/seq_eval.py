@@ -216,8 +216,14 @@ class SequenceEvaluator:
         finally:
             self.model.train(was_training)
 
-    def eval_batches(self, dataset) -> Iterator[tuple]:
-        groups = sequence_groups(dataset.image_ids)
+    def eval_batches(self, dataset, groups=None) -> Iterator[tuple]:
+        """Yields (out, image_ids, bbox, true_b) per window batch of every
+        sequence, in order. `groups`: a subset of
+        sequence_groups(dataset.image_ids)'s (start, length) runs to
+        evaluate instead of all of them (a multi-process eval hands each
+        process its own share)."""
+        if groups is None:
+            groups = sequence_groups(dataset.image_ids)
         stop = threading.Event()
 
         # one-sequence lookahead: load sequence s+1 while the card works

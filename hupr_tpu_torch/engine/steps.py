@@ -11,6 +11,14 @@ into the gradient (not decoupled), as the JAX package's optax chain
 reproduces (tests/test_optimizer.py). The learning rate is written into the
 param groups on every step, as the reference mutates it
 (tools/base.py:66-72).
+
+With a mesh of more than one rank (parallel.make_mesh) the train step is
+data parallel: BN syncs its statistics over the real rows of every rank,
+the loss divides by the global real count, and one flat all_reduce sums
+the gradients and the metrics (the psum XLA inserts under the JAX
+package's mesh), rather than DDP: one step function serves both world
+sizes, and DDP's hooks would meet the non-reentrant checkpoint's
+recompute under MODEL.remat.
 """
 
 from __future__ import annotations
@@ -18,8 +26,10 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import torch
+import torch.distributed as dist
 from torch import nn
 
+from hupr_tpu_torch.models.blocks import synced_batch_stats
 from hupr_tpu_torch.ops.heatmap import (bce_loss, generate_target_batch,
                                         get_max_preds)
 from hupr_tpu_torch.ops.normalize import normalize_radar_window
@@ -62,7 +72,7 @@ def _inputs(batch, device):
             torch.as_tensor(batch["jointsGroup"], device=device), mask)
 
 
-def _losses(model, hori, vert, joints, mask, geometry):
+def _losses(model, hori, vert, joints, mask, geometry, count=None):
     num_keypoints, heatmap_size, img_size = geometry
     heatmap, gcn = model(hori, vert)
     targets, _ = generate_target_batch(
@@ -71,8 +81,8 @@ def _losses(model, hori, vert, joints, mask, geometry):
     k, h = targets.shape[1], targets.shape[2]
     main = heatmap.reshape(-1, k, h, h)
     refined = gcn.reshape(-1, k, h, h)
-    return (bce_loss(main, targets, mask), bce_loss(refined, targets, mask),
-            refined, targets)
+    return (bce_loss(main, targets, mask, count),
+            bce_loss(refined, targets, mask, count), refined, targets)
 
 
 def _combine(loss1, loss2, alpha, loss_decay):
@@ -93,8 +103,39 @@ def _real_rows(mask: torch.Tensor) -> torch.Tensor:
     return torch.nonzero(mask, as_tuple=True)[0]
 
 
+def _global_count(mask: torch.Tensor) -> torch.Tensor:
+    """The number of real rows (mask 1) over all ranks, float32 0-d."""
+    count = mask.to(torch.float32).sum()
+    dist.all_reduce(count)
+    return count
+
+
+def _reduce_gradients(model: nn.Module, metrics) -> list:
+    """Sum every parameter's gradient and the float32 `metrics` over all
+    ranks in one flat all_reduce (the psum XLA inserts under a mesh): each
+    rank's loss is its share of the global batch's mean, so the sum is the
+    global gradient. The parameters' .grad become views of the sum.
+    Returns the summed metrics."""
+    params = list(model.parameters())
+    grads = [torch.zeros_like(p) if p.grad is None else p.grad
+             for p in params]
+    flat = torch.cat([g.reshape(-1) for g in grads]
+                     + [m.detach().reshape(1) for m in metrics])
+    dist.all_reduce(flat)
+    offset = 0
+    for p in params:
+        p.grad = flat[offset:offset + p.numel()].view_as(p)
+        offset += p.numel()
+    return list(flat[offset:].unbind())
+
+
+def _data_parallel(mesh) -> bool:
+    return mesh is not None and mesh.parallel
+
+
 def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
-                    loss_decay: float = -1.0, geometry=(14, 64, 256)):
+                    loss_decay: float = -1.0, geometry=(14, 64, 256),
+                    mesh=None):
     """Returns train_step(state, batch, lr, alpha) -> (state, metrics).
 
     `batch` holds 'hori' and 'vert' (B, G, C, 2, R, A, E) raw windows, numpy
@@ -106,7 +147,20 @@ def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
     for the call); gradients land on the float32 parameters, and the loss,
     the metrics and the optimizer step are float32. The model runs in train mode for
     the step and returns to its previous mode after it. metrics are 0-d
-    tensors on the card, {loss, loss1, loss2}."""
+    tensors on the card, {loss, loss1, loss2}.
+
+    With a `mesh` (parallel.make_mesh) of more than one rank, `batch` is
+    this rank's block of the padded global batch, with its 'mask': every
+    row runs, BN normalizes over the real rows of every rank
+    (models/blocks.synced_batch_stats), each rank divides its masked loss
+    sum by the global real count, and the gradients and metrics are
+    summed across ranks before the optimizer step, so every rank takes
+    the global step and reports the global losses. A rank whose rows are
+    all padding joins every collective with zero rows of loss. The
+    collectives run in one order on every rank: the count, each BN's
+    statistics in the forward, each BN's gradient sums in the backward,
+    the gradients. A world of one is the single-card step."""
+    dp = _data_parallel(mesh)
 
     def train_step(state: TrainState, batch, lr, alpha):
         if state.model is not model or state.optimizer is not tx:
@@ -114,20 +168,30 @@ def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
                              "this train step was made for")
         device = next(model.parameters()).device
         hori, vert, joints, mask = _inputs(batch, device)
-        if mask is not None:
+        count = None
+        if dp:
+            if mask is None:
+                mask = torch.ones(hori.shape[0], device=device)
+            count = _global_count(mask)
+        elif mask is not None:
             rows = _real_rows(mask)
             hori, vert, joints = hori[rows], vert[rows], joints[rows]
+            mask = None
         for group in tx.param_groups:
             group["lr"] = lr
         was_training = model.training
         model.train()
         try:
             with float32_math():
-                loss1, loss2, _, _ = _losses(model, hori, vert, joints, None,
-                                             geometry)
+                with synced_batch_stats(mask):
+                    loss1, loss2, _, _ = _losses(model, hori, vert, joints,
+                                                 mask, geometry, count)
                 loss = _combine(loss1, loss2, alpha, loss_decay)
                 tx.zero_grad(set_to_none=True)
                 loss.backward()
+                if dp:
+                    loss1, loss2, loss = _reduce_gradients(
+                        model, (loss1, loss2, loss))
                 tx.step()
         finally:
             model.train(was_training)

@@ -8,19 +8,30 @@ train (resuming from ./logs/X/checkpoint.pth when there is one), or
 evaluate ./logs/X/model_best.pth.
 
 Runs on the CUDA card, and fails without one; HUPR_PLATFORM=cpu asks for
-the CPU. The Runner refuses HUPR_MULTIHOST=1 (multi-host runs are not
-ported, ROADMAP A9). Reading a YAML config needs PyYAML; `run(args, cfg)`
-takes a config built from the dataclasses instead
-(config.flagship_*_config), as chip_smoke.py does.
+the CPU. HUPR_MULTIHOST=1 runs one process per card over torch.distributed
+(parallel/multihost.py): start the same command in every process with the
+environment torchrun sets (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR,
+MASTER_PORT), e.g.
+
+    HUPR_MULTIHOST=1 torchrun --nproc-per-node 4 -m hupr_tpu_torch.main \
+        --config mscsa_prgcn_tpu.yaml --dir X
+
+`run` then initializes the process group (nccl on the card, gloo on the
+CPU) unless the caller has, and destroys it at the end. Reading a YAML
+config needs PyYAML; `run(args, cfg)` takes a config built from the
+dataclasses instead (config.flagship_*_config), as chip_smoke.py does.
 """
 
 from __future__ import annotations
 
 import os
 
+import torch.distributed
+
 from hupr_tpu_torch.config import (build_arg_parser, load_config,
                                    resolve_config_path)
 from hupr_tpu_torch.engine.runner import Runner
+from hupr_tpu_torch.parallel import multihost
 
 
 def requested_device():
@@ -36,15 +47,26 @@ def requested_device():
 def run(args, cfg, device=None) -> Runner:
     """main.py's flow on a parsed `args` and a built `cfg`: evaluate the
     best checkpoint with --eval, else resume from the latest one (or start
-    from scratch) and train. Returns the Runner."""
-    runner = Runner(args, cfg, device=device)
-    vis = args.visDir != "none"
-    if args.eval:
-        runner.load_model_weight("model_best")
-        runner.eval(visualization=vis)
-    else:
-        runner.load_model_weight("checkpoint")
-        runner.train()
+    from scratch) and train. With HUPR_MULTIHOST=1 it first initializes
+    the process group from the environment (multihost.initialize; skipped
+    when the caller has), and destroys the one it made at the end. Returns
+    the Runner."""
+    own_group = os.environ.get("HUPR_MULTIHOST") == "1" and \
+        not multihost.is_initialized()
+    if own_group:
+        multihost.initialize(device)
+    try:
+        runner = Runner(args, cfg, device=device)
+        vis = args.visDir != "none"
+        if args.eval:
+            runner.load_model_weight("model_best")
+            runner.eval(visualization=vis)
+        else:
+            runner.load_model_weight("checkpoint")
+            runner.train()
+    finally:
+        if own_group:
+            torch.distributed.destroy_process_group()
     return runner
 
 

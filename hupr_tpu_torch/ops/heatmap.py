@@ -88,15 +88,22 @@ def get_max_preds(batch_heatmaps: torch.Tensor):
 
 
 def bce_loss(probs: torch.Tensor, targets: torch.Tensor,
-             sample_mask: torch.Tensor | None = None) -> torch.Tensor:
+             sample_mask: torch.Tensor | None = None,
+             count: torch.Tensor | None = None) -> torch.Tensor:
     """Mean BCE on probabilities with nn.BCELoss's numerics: each log
     clamped at -100, and the input gradient's p(1-p) denominator clamped at
     1e-12, so saturated probabilities give large but finite gradients. With
     `sample_mask` (B,) the mean runs over the samples whose mask is 1 only:
-    the rows a data-parallel batch is padded with carry 0."""
+    the rows a data-parallel batch is padded with carry 0. `count` replaces
+    the mask's sum as the number of real samples: data parallel, each rank
+    divides its masked sum by the global count, so the ranks' losses add up
+    to the global batch's mean (hupr_tpu/ops/heatmap.py:135-146 under a
+    mesh)."""
     elems = F.binary_cross_entropy(probs, targets, reduction="none")
     if sample_mask is None:
         return elems.mean()
     w = sample_mask.to(elems.dtype).reshape((-1,) + (1,) * (elems.dim() - 1))
     inner = math.prod(elems.shape[1:])
-    return (elems * w).sum() / (sample_mask.to(elems.dtype).sum() * inner)
+    if count is None:
+        count = sample_mask.to(elems.dtype).sum()
+    return (elems * w).sum() / (count * inner)

@@ -1,6 +1,6 @@
 """Host-to-device staging for the Runner's loops (counterpart of
 `hupr_tpu/utils/prefetch.py` and of `device_prefetch` in
-`hupr_tpu/parallel/mesh.py`, on one card).
+`hupr_tpu/parallel/mesh.py`, on this process's card).
 
   stop_aware_put  a bounded put that gives up when the consumer has gone,
                   so an abandoned producer thread is released
@@ -20,6 +20,9 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 
+from hupr_tpu_torch.parallel import multihost
+from hupr_tpu_torch.parallel.mesh import _pad_batch_axis
+
 
 def stop_aware_put(q: "queue.Queue", item, stop: threading.Event,
                    poll: float = 0.1) -> bool:
@@ -34,18 +37,6 @@ def stop_aware_put(q: "queue.Queue", item, stop: threading.Event,
     return False
 
 
-def _pad_rows(arr, target: int):
-    """Pad the batch axis to `target` rows by repeating the last sample,
-    as the JAX package's shard_batch does (the padded rows are masked out
-    of the loss and BN statistics and dropped by the caller)."""
-    rem = target - arr.shape[0]
-    if rem == 0:
-        return arr
-    if isinstance(arr, torch.Tensor):
-        return torch.cat([arr, arr[-1:].expand(rem, *arr.shape[1:])])
-    return np.concatenate([arr, np.repeat(arr[-1:], rem, axis=0)])
-
-
 def device_prefetch(batch_iter: Iterable[dict], device,
                     pad_to: Optional[int] = None,
                     keys=("hori", "vert", "jointsGroup")):
@@ -56,6 +47,11 @@ def device_prefetch(batch_iter: Iterable[dict], device,
     rows itself: its `trueB` and `imageId` pass through into the device
     batch as they are, its gather table `rel` goes to the card as int64,
     and it is never padded here (its loader pads it).
+
+    A batch with a `trueRows` count (a process-sliced BatchLoader's, in a
+    multi-process run) holds this process's rows of the padded global
+    batch, and gets the mask of those rows
+    (parallel.multihost.global_shard_batch), never padding here.
 
     A batch shorter than `pad_to` is padded to it by repeating its last
     sample and carries a 0/1 'mask' of its real rows; a full batch carries
@@ -74,10 +70,12 @@ def device_prefetch(batch_iter: Iterable[dict], device,
 
     def stage(batch):
         if "trueRows" in batch:
-            raise NotImplementedError(
-                "process-sliced batches (multi-host) are not ported: "
-                "ROADMAP A9")
-        if "trueB" in batch:
+            padded = batch[keys[0]].shape[0] * multihost.process_count()
+            host, true_b = multihost.global_shard_batch(
+                {k: batch[k] for k in keys}, None, padded,
+                int(batch["trueRows"]))
+            passed = {}
+        elif "trueB" in batch:
             true_b = int(batch["trueB"])
             host = {k: torch.as_tensor(batch[k]) for k in keys}
             host["rel"] = host["rel"].to(torch.int64)
@@ -85,7 +83,7 @@ def device_prefetch(batch_iter: Iterable[dict], device,
         else:
             true_b = batch[keys[0]].shape[0]
             target = max(true_b, pad_to or 0)
-            host = {k: torch.as_tensor(_pad_rows(batch[k], target))
+            host = {k: torch.as_tensor(_pad_batch_axis(batch[k], target))
                     for k in keys}
             if target > true_b:
                 host["mask"] = torch.from_numpy(

@@ -196,14 +196,34 @@ def test_chunk_loader_epochs_equal_jax(tmp_path, wire):
 
 
 def test_one_card_only(tmp_path):
+    """What one card only once allowed and now runs (data parallel,
+    tests/test_torch_parallel.py): the padded axes (pad_multiple 8: 8
+    rows, 16 frames), process blocks (rank 1 of 2: rows 2-3 and frames
+    4-7 of 4 and 8), and the step and device_put_chunk with a mesh of one
+    rank (the single-card step, on the mesh's device)."""
+    from hupr_tpu_torch.parallel import make_mesh
+
     _, cfg = adc_workspace(tmp_path)
     ds = get_dataset("train", cfg)
-    with pytest.raises(NotImplementedError, match="A9"):
-        chunk_train.ChunkTrainLoader(ds, 4, pad_multiple=8)
-    with pytest.raises(NotImplementedError, match="A9"):
-        chunk_train.ChunkTrainLoader(ds, 4, process=(0, 2))
-    with pytest.raises(NotImplementedError, match="A9"):
-        chunk_train.make_chunk_train_step(None, None, mesh=object())
+    padded = chunk_train.ChunkTrainLoader(ds, 4, pad_multiple=8,
+                                          shuffle=False)
+    assert (padded.rows_pad, padded.f_pad) == (8, 16)
+    block = chunk_train.ChunkTrainLoader(ds, 4, pad_multiple=2,
+                                         process=(1, 2), shuffle=False)
+    batch = block._assemble(block.chunks[0])
+    assert batch["hori"].shape[0] == 6 and batch["rel"].shape[0] == 2
+    np.testing.assert_array_equal(batch["mask"], [1.0, 1.0])
+    mesh = make_mesh("cpu")
+    dev, true_b = chunk_train.device_put_chunk(batch, mesh=mesh)
+    assert true_b == 4 and dev["rel"].device == mesh.device
+    model = build_model(cfg, device="cpu")
+    tx = steps.make_optimizer(cfg, model)
+    one = chunk_train.make_chunk_train_step(model, tx, _geometry(cfg),
+                                            mesh=mesh)
+    loader = chunk_train.ChunkTrainLoader(ds, 4, shuffle=False)
+    _, m = one(steps.TrainState(model, tx),
+               loader._assemble(loader.chunks[0]), 1e-4, 0.0)
+    assert np.isfinite(m["loss"].item())
 
 
 # ----------------------------------------------------------- train steps
@@ -355,7 +375,7 @@ def test_adc_sequence_eval_equals_cube_eval(tmp_path):
 def test_device_prefetch_stages_chunk_batches(tmp_path):
     """A chunk batch keeps its rows (no padding: its loader pads it), its
     gather table arrives as int64, trueB and imageId pass through as they
-    are, and multi-host batches stay refused."""
+    are, and a multi-process batch keeps its rows and gets its mask."""
     from hupr_tpu_torch.utils.prefetch import device_prefetch
 
     _, cfg = adc_workspace(tmp_path)
@@ -371,5 +391,9 @@ def test_device_prefetch_stages_chunk_batches(tmp_path):
         for k in chunk_train.CHUNK_KEYS:
             np.testing.assert_array_equal(dev[k].numpy(),
                                           np.asarray(host[k]))
-    with pytest.raises(NotImplementedError, match="A9"):
-        next(device_prefetch([{"trueRows": 1}], "cpu"))
+    # a process-sliced batch (trueRows) gets its rows' mask, no padding
+    ((dev, _, true_b),) = device_prefetch(
+        [{"hori": np.zeros((3, 2)), "vert": np.zeros((3, 2)),
+          "jointsGroup": np.zeros((3, 14, 2)), "trueRows": 2}], "cpu",
+        pad_to=5)
+    assert true_b == 2 and dev["mask"].tolist() == [1.0, 1.0, 0.0]

@@ -627,3 +627,21 @@ def test_stream_graph_step_equals_eager(cuda, compute):
         np.testing.assert_array_equal(p, pe)
         np.testing.assert_allclose(m, me, rtol=0, atol=1e-5)
     assert np.std([m for _, m in outs[True]]) > 1e-3
+
+
+def test_two_rank_shared_card_step_equals_one_rank(cuda, tmp_path):
+    """The data-parallel step in two processes sharing the card over gloo
+    (chip_smoke.dp_step_phase; NCCL refuses two ranks on one device) at
+    the kernels' widths (numFilters 32) on 32x32 maps: 19 real rows padded
+    to 20, 10 a rank, 8 steps from seeded N(0, 0.03) weights, against the
+    one-rank masked step on the card from the same weights: the ranks'
+    replicas equal bit for bit, 12 + 12 launches a step on each rank,
+    losses, weights, BN statistics and each leaf's update at the runner
+    phase's bars (chip_smoke.hold_readings)."""
+    smoke = _chip_smoke()
+    out = smoke.dp_step_phase(torch, "f32", str(tmp_path), spatial=32)
+    assert out["replicas_equal"] and out["finite"]
+    assert out["update_max_rel_err"] <= smoke.RUNNER_UPDATE_RTOL
+    assert out["launches_by_rank"] == [
+        {"attention_fwd": 12 * smoke.DP_STEPS,
+         "attention_bwd": 12 * smoke.DP_STEPS}] * 2

@@ -167,7 +167,9 @@ def test_device_prefetch_pads_the_last_batch_as_shard_batch(wire):
     """A short batch is padded to pad_to by repeating its last sample and
     carries a 0/1 mask (hupr_tpu/parallel/mesh.py:shard_batch); a full one
     carries no mask. The host batch and its true size come along. Planes
-    in the bfloat16 wire format arrive as torch tensors and stay so."""
+    in the bfloat16 wire format arrive as torch tensors and stay so. A
+    process-sliced batch (trueRows) is not padded and carries the mask of
+    its rows."""
     from hupr_tpu.parallel.mesh import _pad_batch_axis
 
     rng = np.random.default_rng(0)
@@ -189,9 +191,12 @@ def test_device_prefetch_pads_the_last_batch_as_shard_batch(wire):
                                           _pad_batch_axis(want, 4))
     assert "mask" not in out[0][0]
     np.testing.assert_array_equal(out[2][0]["mask"].numpy(), [1, 1, 1, 0])
-    with pytest.raises(NotImplementedError, match="A9"):
-        list(prefetch.device_prefetch(iter([dict(batches[0], trueRows=4)]),
-                                      "cpu"))
+    # a process-sliced batch (multi-process) holds its rows of the padded
+    # global batch: no padding, its rows' mask (one process: rows 0-3)
+    ((dev, _, t),) = prefetch.device_prefetch(
+        iter([dict(batches[2], trueRows=2)]), "cpu", pad_to=4)
+    assert t == 2 and dev["hori"].shape[0] == 3
+    np.testing.assert_array_equal(dev["mask"].numpy(), [1, 1, 0])
 
 
 def test_pending_fetch_reads_copies():

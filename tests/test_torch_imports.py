@@ -27,12 +27,13 @@ BLOCKED = ("jax", "flax", "optax", "hupr_tpu", "yaml", "tqdm", "cv2", "PIL",
            "ml_dtypes", "msgpack")
 
 # modules that must be among those imported: the streaming, chunk-training,
-# raw-ADC and remat scripts' modules, and the preprocessing CLI, the live
-# capture, live serving and the parity audit
+# raw-ADC and remat scripts' modules, the preprocessing CLI, the live
+# capture, live serving and the parity audit, and data parallelism
 NEW = ("data.adc", "engine.chunk_train", "engine.streaming",
        "scripts.remat_memory", "scripts.batch_sweep",
        "preprocessing.process_iwr1843", "data.capture", "scripts.live_serve",
-       "scripts.parity_audit")
+       "scripts.parity_audit", "parallel", "parallel.mesh",
+       "parallel.multihost", "scripts.dp_scaling")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys

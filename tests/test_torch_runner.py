@@ -323,13 +323,17 @@ def test_cli_trains_then_evaluates(tmp_path, monkeypatch):
 
 
 def test_refuses_what_is_not_ported(tmp_path, monkeypatch):
-    """Multi-host runs (ROADMAP A9) raise instead of running another path;
-    chunk-mode training and raw-ADC sequence eval (ported from A4) no
-    longer do; with no card and no request for the CPU, the Runner and
-    the CLI raise."""
+    """Nothing is refused as unported any more: chunk-mode training and
+    raw-ADC sequence eval (ported from A4) run, and so does
+    HUPR_MULTIHOST=1 (A9): main.run initializes a process group from the
+    environment (here a world of one on gloo, the CPU asked for), runs
+    the single-card loop in it and destroys the group, and without RANK /
+    WORLD_SIZE it says what is missing. With no card and no request for
+    the CPU, the Runner and the CLI raise."""
+    import socket
+
     from hupr_tpu_torch import main as cli
-    from hupr_tpu_torch.config import fast_training_config
-    from hupr_tpu_torch.engine.runner import refuse_unported
+    from hupr_tpu_torch.parallel import multihost
 
     _, cfg = _workspace(tmp_path)
     monkeypatch.chdir(tmp_path)
@@ -339,16 +343,23 @@ def test_refuses_what_is_not_ported(tmp_path, monkeypatch):
     cfg.TEST.sequenceSource = "adc"
     assert Runner(_args("x"), cfg, device="cpu")._chunk_loader is not None
     Runner(_args("x", True), cfg, device="cpu")     # eval reads no chunks
-    for eval_mode in (False, True):
-        refuse_unported(fast_training_config(), _args("x", eval_mode))
     cfg.TRAINING.chunkTrain = False
     cfg.TEST.sequenceSource = "cubes"
 
     monkeypatch.setenv("HUPR_MULTIHOST", "1")
-    with pytest.raises(NotImplementedError, match="A9"):
-        Runner(_args("x"), cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
+    for key in ("RANK", "WORLD_SIZE"):
+        monkeypatch.delenv(key, raising=False)
+    with pytest.raises(RuntimeError, match="RANK"):
         cli.run(_args("x"), cfg, device="cpu")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for key, value in (("RANK", "0"), ("WORLD_SIZE", "1"),
+                       ("MASTER_ADDR", "127.0.0.1"),
+                       ("MASTER_PORT", str(port))):
+        monkeypatch.setenv(key, value)
+    runner = cli.run(_args("x", True), cfg, device="cpu")
+    assert runner.mesh.world == 1 and not multihost.is_initialized()
     monkeypatch.delenv("HUPR_MULTIHOST")
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
