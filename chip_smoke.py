@@ -101,7 +101,22 @@
    and main.run in a world of one on NCCL against the plain Runner. Its
    ms per step (dp_shared_card_ms_per_step) is two ranks time-slicing
    one card, not a scaling number. No profiler runs here.
-17. Prints the `kernels` line (every kernel and mode), then ends with one
+17. AOT serving export (engine/export.py), right after the float32 and
+   the bfloat16 slices: each config's program exported on the CPU with
+   the slice's weights into build/export/, loaded onto the card and
+   serving the slice's requests in turns with make_e2e_infer (12 launches
+   a request; float32 within 1e-6 and 99 % of keypoints equal, bfloat16
+   within 1e-2 and 95 %); for float32 also a new process that imports
+   engine.export alone loads the file and serves a request through the
+   kernel, and an artifact exported on the card serves what the
+   CPU-exported one serves. Artifact MB, export and load seconds,
+   frames/s beside make_e2e_infer's.
+18. scripts/profile_train.py in a process of its own per mode (train and
+   serve): the attention kernels among its attributed names, its launch
+   counts, its total beside the `profile` line's busy ms (read, not held).
+19. scripts/conv_microbench.py at its defaults in float32 and bfloat16,
+   its own agreement assert holding each reformulation to cuDNN's.
+20. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -867,6 +882,7 @@ def profile(torch, path: str, fn, top: int = 12):
            "idle_share": (1 - busy_ms / wall_ms) if kernels else None,
            "top": [[name[:90], ms, n] for name, ms, n in kernels[:top]]}
     print(json.dumps({"profile": out}), flush=True)
+    return out
 
 
 def bench_batch(torch, cfg):
@@ -3428,6 +3444,224 @@ def dp_nccl_worker(torch, root: str, data: str) -> dict:
     return out
 
 
+# the export phase: the artifacts (144 MB each) under the gitignored
+# build/, and the fresh process's time to load and serve one request
+EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          "build", "export")
+EXPORT_TIMEOUT_S = 300
+# the artifact against make_e2e_infer on the same requests: float32 at
+# tests/test_export.py's bars (one program, one card), bfloat16 at the
+# stream's (STREAM_AGREE)
+EXPORT_BARS = {"f32": (1e-6, 0.99), "bf16": (MAXVAL_TOL_BF16, 0.95)}
+
+_EXPORT_FRESH = """
+import json, sys
+import torch
+from hupr_tpu_torch.engine.export import load_artifact
+from hupr_tpu_torch.ops import attention
+serve = load_artifact(sys.argv[1])
+request = torch.load(sys.argv[2])
+serve(*request)
+attention.reset_launch_counts()
+pred, maxv = serve(*request)
+torch.cuda.synchronize()
+torch.save((pred.cpu(), maxv.cpu()), sys.argv[3])
+print(json.dumps({"launches": attention.attention_fwd.launches_by_mode,
+                  "model_code": sorted(m for m in sys.modules if m.startswith(
+                      ("hupr_tpu_torch.models", "hupr_tpu_torch.engine.pipeline",
+                       "jax")))}))
+"""
+
+
+def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
+                 run, outs_live, fresh: bool = False):
+    """Export `cfg`'s serving program with the slice's N(0, 0.03) seed-0
+    weights on the CPU into build/, load it onto the card and serve the
+    slice's requests, in turns with make_e2e_infer's `run` (whose outputs
+    on them are `outs_live`): 12 wrapper launches a request in `mode`, the
+    outputs at EXPORT_BARS. With `fresh`, also a new process that imports
+    engine.export alone loads the file and serves one request through the
+    kernel, and an artifact exported on the card serves what the
+    CPU-exported one serves."""
+    from hupr_tpu_torch.engine.export import (artifact_info, export_serving,
+                                              load_artifact, load_serving,
+                                              save_artifact)
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    ds = cfg.DATASET
+    model = build_model(cfg, device="cpu")
+    state = synthetic_state_dict(model, seed=0, scale=0.03)
+    kw = dict(params=ds.radar_params(), frames=FRAMES,
+              group=ds.numGroupFrames, num_frames=ds.numFrames)
+    t0 = time.perf_counter()
+    blob = export_serving(model, state, **kw)
+    export_s = time.perf_counter() - t0
+    os.makedirs(EXPORT_DIR, exist_ok=True)
+    path = os.path.join(EXPORT_DIR, f"serving_{label}.pt2")
+    save_artifact(path, blob)
+    info = artifact_info(blob)
+    t0 = time.perf_counter()
+    serve = load_artifact(path)
+    load_s = time.perf_counter() - t0
+
+    def timed_serve(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        outs = [fn(*req) for req in requests]
+        torch.cuda.synchronize()
+        return outs, time.perf_counter() - t0
+
+    serve(*requests[0])                     # warm-up: cuDNN plans, caches
+    _, live1 = timed_serve(run)
+    attention.reset_launch_counts()
+    outs, elapsed = timed_serve(serve)
+    by_mode = dict(attention.attention_fwd.launches_by_mode)
+    bwd = attention.attention_bwd.launches
+    _, live2 = timed_serve(run)
+    frames = FRAMES * len(requests)
+    err, agree = decode_vs(outs, outs_live)
+    tol, agree_bar = EXPORT_BARS[mode]
+    result = {"card": card, "compute_dtype": cfg.MODEL.computeDtype,
+              "artifact_mb": info["bytes"] / 1e6,
+              "platforms": info["platforms"], "in_avals": info["in_avals"],
+              "out_avals": info["out_avals"],
+              "calling_convention_version":
+                  info["calling_convention_version"],
+              "export_s": export_s, "load_s": load_s,
+              "requests": len(requests), "frames_per_s": frames / elapsed,
+              "frames_per_s_make_e2e_infer": [frames / live1,
+                                              frames / live2],
+              "attention_launches": sum(by_mode.values()),
+              "attention_launches_by_mode": by_mode,
+              "maxvals_max_abs_err_vs_live": err,
+              "keypoint_agreement_vs_live": agree}
+    fresh_launches = 0
+    if fresh:
+        req_path = os.path.join(EXPORT_DIR, "request.pt")
+        out_path = os.path.join(EXPORT_DIR, "fresh_out.pt")
+        torch.save([t.cpu() for t in requests[0]], req_path)
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-c", _EXPORT_FRESH, path, req_path, out_path],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            capture_output=True, text=True, timeout=EXPORT_TIMEOUT_S,
+            env={**os.environ, "PYTHONPATH": os.path.dirname(
+                os.path.abspath(__file__))})
+        if proc.returncode != 0:
+            raise AssertionError(f"the fresh process exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        seen = json.loads(proc.stdout.strip().splitlines()[-1])
+        fresh_out = torch.load(out_path)
+        ferr, fagree = decode_vs([tuple(t.cuda() for t in fresh_out)],
+                                 outs[:1])
+        fresh_launches = sum(seen["launches"].values())
+        result["fresh_process"] = {
+            "seconds": time.perf_counter() - t0, **seen,
+            "maxvals_max_abs_err_vs_artifact": ferr,
+            "keypoint_agreement_vs_artifact": fagree}
+        model_card = build_model(cfg)
+        t0 = time.perf_counter()
+        blob_card = export_serving(model_card, state, device="cuda", **kw)
+        card_s = time.perf_counter() - t0
+        got = load_serving(blob_card)(*requests[0])
+        cerr, cagree = decode_vs([got], outs[:1])
+        result["exported_on_card"] = {
+            "export_s": card_s, "artifact_mb": len(blob_card) / 1e6,
+            "maxvals_max_abs_err_vs_cpu_export": cerr,
+            "keypoint_agreement_vs_cpu_export": cagree}
+        del model_card, blob_card
+    print(json.dumps({label: result}), flush=True)
+    per_request = 12
+    if by_mode != {mode: per_request * len(requests)} or bwd != 0:
+        raise AssertionError(f"the artifact launched attention_fwd {by_mode}"
+                             f" and attention_bwd {bwd} times for "
+                             f"{len(requests)} requests")
+    if not (err <= tol and agree >= agree_bar):
+        raise AssertionError(f"the artifact against make_e2e_infer: maxvals"
+                             f" within {err} (bar {tol}), keypoints "
+                             f"{agree} (bar {agree_bar})")
+    if fresh:
+        fr, ec = result["fresh_process"], result["exported_on_card"]
+        if fr["launches"] != {mode: per_request} or fr["model_code"]:
+            raise AssertionError(f"the fresh process: {fr}")
+        for e, a in ((fr["maxvals_max_abs_err_vs_artifact"],
+                      fr["keypoint_agreement_vs_artifact"]),
+                     (ec["maxvals_max_abs_err_vs_cpu_export"],
+                      ec["keypoint_agreement_vs_cpu_export"])):
+            if not (e <= tol and a >= agree_bar):
+                raise AssertionError(f"fresh process or card export: {fr}, "
+                                     f"{ec}")
+    return {"launches": by_mode.get(mode, 0),
+            "fresh_launches": fresh_launches}
+
+
+# profile_train's attention kernels: the forward in mode f32, and the
+# backward's two passes in the train step
+PROFILE_KERNELS = {"serve": ("attention_fwd_tf32",),
+                   "train": ("attention_fwd_tf32", "attention_bwd_dq_tf32",
+                             "attention_bwd_dkdm_tf32")}
+
+
+def profile_train_phase(card: str, busy: dict) -> dict:
+    """scripts/profile_train.py in a process of its own per mode (its first
+    profiler run): its total attributed compute beside the `profile`
+    line's device_busy_ms of the same path (`busy`, read, not held), the
+    attention kernels among its lines, and its launch counts (one warm-up
+    call and one profiled: 24 forward launches, and in train 24
+    backward)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = {}
+    for mode in ("train", "serve"):
+        t0 = time.perf_counter()
+        proc = subprocess.run(
+            [sys.executable, "-m", "hupr_tpu_torch.scripts.profile_train"],
+            cwd=root, capture_output=True, text=True,
+            timeout=EXPORT_TIMEOUT_S,
+            env={**os.environ, "PYTHONPATH": root, "MODE": mode})
+        if proc.returncode != 0:
+            raise AssertionError(f"profile_train MODE={mode} exited "
+                                 f"{proc.returncode}:\n{proc.stderr[-4000:]}")
+        lines = proc.stdout.strip().splitlines()
+        total = float(re.search(r"total attributed compute: ([\d.]+) ms",
+                                proc.stdout).group(1))
+        names = [ln.split("%  ", 1)[1] for ln in lines
+                 if re.match(r" *[\d.]+ ms +[\d.]+%  ", ln)]
+        launches = json.loads(lines[-1].split("attention launches: ", 1)[1])
+        out[mode] = {"seconds": time.perf_counter() - t0,
+                     "total_attributed_ms": total,
+                     "profile_device_busy_ms": busy[mode],
+                     "lines": len(names), "top": names[:6],
+                     "launches": launches}
+        missing = [k for k in PROFILE_KERNELS[mode]
+                   if not any(n.endswith("::" + k) or n == k for n in names)]
+        want = {"attention_fwd": {"f32": 24},
+                "attention_bwd": {"f32": 24} if mode == "train" else {}}
+        if missing or launches != want:
+            print(json.dumps({"profile_train": out}), flush=True)
+            raise AssertionError(f"profile_train MODE={mode}: kernels "
+                                 f"{missing} not among its lines, or "
+                                 f"launches {launches} != {want}")
+    print(json.dumps({"profile_train": {"card": card, **out}}), flush=True)
+    return out
+
+
+def conv_micro_phase(torch, card: str) -> list:
+    """scripts/conv_microbench.py at its defaults, float32 and bfloat16;
+    its own agreement assert holds each reformulation to native."""
+    from hupr_tpu_torch.scripts import conv_microbench
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rows = conv_microbench.main([])
+    print(json.dumps({"conv_micro": {
+        "card": card, "shape": "(B, T, H, W, C) = (32, 8, 64, 64, 64)",
+        "seconds": time.perf_counter() - t0, "rows": rows}}), flush=True)
+    torch.cuda.empty_cache()
+    return rows
+
+
 def kernel_entry(name, mode, source, replaces, launches, rows, scale, per,
                  **extra):
     """One object of the `kernels` line: times and bounds summed over
@@ -3453,7 +3687,9 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from hupr_tpu_torch.config import fast_serving_config, fast_training_config
+    from hupr_tpu_torch.config import (fast_serving_config,
+                                       fast_training_config,
+                                       flagship_serving_config)
     from hupr_tpu_torch.ops.cuda_build import build
 
     smi = smi_line()
@@ -3500,16 +3736,22 @@ def main() -> int:
     # the first profiler run: later ones drop some of the card's events
     stream_launches(torch, st, stream_frames)
     del stream_frames
-    profile(torch, "serve", lambda: run(*requests[0]))
+    busy = {"serve": profile(torch, "serve",
+                             lambda: run(*requests[0]))["device_busy_ms"]}
+    ex = export_phase(torch, requests, smi, flagship_serving_config(),
+                      "export", "f32", run, outs_f32, fresh=True)
     del run
-    sl16, run, _ = serve_slice(torch, requests, smi, fast_serving_config(),
-                               "slice_bf16", "bf16", MAXVAL_TOL_BF16,
-                               vs_f32=outs_f32)
+    sl16, run, outs16 = serve_slice(torch, requests, smi,
+                                    fast_serving_config(), "slice_bf16",
+                                    "bf16", MAXVAL_TOL_BF16, vs_f32=outs_f32)
     profile(torch, "serve_bf16", lambda: run(*requests[0]))
-    del run
+    ex16 = export_phase(torch, requests, smi, fast_serving_config(),
+                        "export_bf16", "bf16", run, outs16)
+    del run, outs16
     tr, one_step = train_slice(torch, smi)
     # every kernel of the step, so that the two paths can be compared
-    profile(torch, "train", one_step["pallas"], top=200)
+    busy["train"] = profile(torch, "train", one_step["pallas"],
+                            top=200)["device_busy_ms"]
     profile(torch, "train_plain_attention", one_step["xla"], top=200)
     del one_step
     tr16, one_step = train_slice(torch, smi, fast_training_config,
@@ -3533,6 +3775,8 @@ def main() -> int:
     fe = front_end_phase(torch, smi)
     torch.cuda.empty_cache()
     par = parallel_phase(torch, smi)
+    pt = profile_train_phase(smi, busy)
+    conv_micro_phase(torch, smi)
     backward_passes(torch)
 
     shapes = "4 at each (N, C) of (256, 256), (1024, 128), (4096, 64)"
@@ -3562,6 +3806,12 @@ def main() -> int:
                       "runner": rr["launches"]["attention_fwd"],
                       "learn":
                           ln["pallas"]["launches"]["attention_fwd"]["f32"],
+                      "export": ex["launches"],
+                      "export_fresh_process": ex["fresh_launches"],
+                      "profile_train":
+                          pt["train"]["launches"]["attention_fwd"]["f32"],
+                      "profile_train_serve":
+                          pt["serve"]["launches"]["attention_fwd"]["f32"],
                       "stream":
                           st["f32"]["sequence_wrapper_launches"]["f32"],
                       "audit":
@@ -3590,6 +3840,8 @@ def main() -> int:
                       "runner": rr["launches"]["attention_bwd"],
                       "learn":
                           ln["pallas"]["launches"]["attention_bwd"]["f32"],
+                      "profile_train":
+                          pt["train"]["launches"]["attention_bwd"]["f32"],
                       **by_rank("parallel_step",
                                 par["f32"]["launches_by_rank"],
                                 "attention_bwd"),
@@ -3610,6 +3862,7 @@ def main() -> int:
         if mode == "bf16":
             fast = rf["launches"]
             fwd_launches = {"serve_bf16": sl16["attention_launches"],
+                            "export_bf16": ex16["launches"],
                             "train_bf16": tr16["attention_fwd_launches"],
                             "stream_bf16": st["bf16"][
                                 "sequence_wrapper_launches"]["bf16"],

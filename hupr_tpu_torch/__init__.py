@@ -7,6 +7,9 @@ NVIDIA Hopper (sm_90a).
                     (engine.seq_eval) or classic, .pth checkpoints
                     (engine.checkpoint), the OKS evaluator (eval)
   engine.pipeline   make_e2e_infer: raw ADC frames -> keypoints
+  engine.export     that program as a torch.export artifact, the attention
+                    kernels kept as custom ops (export_serving,
+                    load_serving)
   engine.steps      make_train_step / make_eval_step: one batch of raw
                     windows and joints -> losses, an optimizer step
   data              the HuPR dataset, its batch loader and GT JSON; the
@@ -15,8 +18,9 @@ NVIDIA Hopper (sm_90a).
   preprocessing     the preprocessing CLI: raw captures -> .npy cubes
   scripts           live_serve (capture -> streaming poses), parity_audit
                     (model_best.pth -> COCO AP), the microbenchmark, the
-                    remat and batch-size scripts, and dp_scaling (the
-                    data-parallel step over several cards)
+                    remat and batch-size scripts, dp_scaling (the
+                    data-parallel step over several cards), export_serving,
+                    profile_train and conv_microbench
   models            HuPRNet (MNet, Encoder3D, MSCSA decoder, PRGCN) with the
                     reference's state_dict keys; convert.state_dict_from_jax
   ops               radar DSP (torch.fft), normalize, resize, Gaussian

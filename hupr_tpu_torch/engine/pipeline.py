@@ -13,6 +13,7 @@ reference's boundary-clamped window table is replicate padding in time.
 from __future__ import annotations
 
 import torch
+from torch import nn
 
 from hupr_tpu_torch.ops.dsp import RadarParams, radar_cube_frames
 from hupr_tpu_torch.ops.heatmap import get_max_preds
@@ -63,6 +64,40 @@ def cube_chirp_input(cubes_real, cubes_imag, num_frames: int = 8):
     return normalize_radar_window(x)[:, None]
 
 
+class ServingProgram(nn.Module):
+    """The serving body: (hori_re, hori_im, vert_re, vert_im), each
+    (F, RX=4, chirps, ADC) int16 or float raw I/Q frames of one sequence
+    per radar view on the model's device -> (pred2d (F, K, 2), maxvals
+    (F, K, 1)). `make_e2e_infer` runs it live and engine/export.py traces
+    it, so the two cannot drift apart. The model's compute dtype holds
+    where it has one (the chirp maps are windowed in it)."""
+
+    def __init__(self, model: nn.Module, params: RadarParams = RadarParams(),
+                 duration: int = 600, group: int = 8, num_frames: int = 8):
+        super().__init__()
+        self.model = model
+        self.params = params
+        self.duration, self.group, self.num_frames = \
+            duration, group, num_frames
+
+    def _cube_input(self, re, im):
+        c = radar_cube_frames(torch.complex(re.to(torch.float32),
+                                            im.to(torch.float32)),
+                              self.params)
+        return cube_chirp_input(c.real, c.imag, self.num_frames)
+
+    def forward(self, hori_re, hori_im, vert_re, vert_im):
+        hori = self._cube_input(hori_re, hori_im)
+        vert = self._cube_input(vert_re, vert_im)
+        ra, re = self.model.chirp_maps(hori, vert)
+        ra = window_stack_sequences(ra[:, 0], self.group,
+                                    self.duration)          # (F,G,R,A,C)
+        re = window_stack_sequences(re[:, 0], self.group, self.duration)
+        _, gcn = self.model.pose_from_maps(ra, re)
+        k, h = gcn.shape[2], gcn.shape[3]
+        return get_max_preds(gcn.reshape(-1, k, h, h))
+
+
 def make_e2e_infer(model, state=None, params: RadarParams = RadarParams(),
                    duration: int = 600, group: int = 8, num_frames: int = 8,
                    device=None):
@@ -70,30 +105,20 @@ def make_e2e_infer(model, state=None, params: RadarParams = RadarParams(),
     maxvals (F, K, 1)) over F raw ADC frames of one sequence per radar
     view, each plane (F, RX=4, 192, ADC=256), int16 (the DCA1000's sample
     format) or float, numpy or torch. `state`, when given, is loaded into
-    `model` strictly. Runs on the card unless `device` says otherwise, in
-    the model's compute dtype where it has one (the chirp maps are windowed
-    in it) and in full float32 elsewhere (TF32 off for the call)."""
+    `model` strictly. Runs `ServingProgram` on the card unless `device`
+    says otherwise, in the model's compute dtype where it has one and in
+    full float32 elsewhere (TF32 off for the call)."""
     dev = resolve_device(device)
     model = model.to(dev).eval()
     if state is not None:
         model.load_state_dict(state, strict=True)
-
-    def cube(re, im):
-        re = torch.as_tensor(re, device=dev).to(torch.float32)
-        im = torch.as_tensor(im, device=dev).to(torch.float32)
-        c = radar_cube_frames(torch.complex(re, im), params)
-        return c.real, c.imag
+    program = ServingProgram(model, params, duration, group,
+                             num_frames).eval()
 
     @torch.inference_mode()
     @float32_math()
     def run(hori_re, hori_im, vert_re, vert_im):
-        hori = cube_chirp_input(*cube(hori_re, hori_im), num_frames)
-        vert = cube_chirp_input(*cube(vert_re, vert_im), num_frames)
-        ra, re = model.chirp_maps(hori, vert)
-        ra = window_stack_sequences(ra[:, 0], group, duration)  # (F,G,R,A,C)
-        re = window_stack_sequences(re[:, 0], group, duration)
-        _, gcn = model.pose_from_maps(ra, re)
-        k, h = gcn.shape[2], gcn.shape[3]
-        return get_max_preds(gcn.reshape(-1, k, h, h))
+        return program(*(torch.as_tensor(x, device=dev)
+                         for x in (hori_re, hori_im, vert_re, vert_im)))
 
     return run

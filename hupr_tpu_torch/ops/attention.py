@@ -46,6 +46,14 @@ before the product, in modes f32 (3xTF32 on mma.sync) and f32_bf16ops
 makes two passes over the key tiles, each row's max and sum, then the
 recomputed logits' normalized softmax times m: three products where the
 TPU body makes two, whose 4*B*N^2*C flops its bound counts.
+
+Each kernel is a torch.library custom op in the namespace hupr_tpu_torch
+(`attention_fwd`, `attention_fwd_lse`, `attention_bwd`,
+`attention_fwd_unfolded`): the dispatcher hands CUDA tensors to the launch
+and CPU tensors to the plain twin, and a program traced by torch.export
+keeps the op as one node, so an artifact exported on a CPU host launches
+the kernel on the card (engine/export.py). The public wrappers call the
+ops and keep the launch counts.
 """
 
 from __future__ import annotations
@@ -247,28 +255,35 @@ def _operand_tensors(tensors, mode: str):
     return out
 
 
-def _on_cpu(*tensors) -> bool:
-    return all(t.device.type == "cpu" for t in tensors)
-
-
 def _stream(t: torch.Tensor):
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def attention_fwd(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
-                  with_lse: bool = False, bf16_ops: bool = False):
-    """(B, N, C) x3 -> out, or (out, lse) with `with_lse`; float32 or
-    bfloat16 inputs of one dtype, out in that dtype, lse float32. CPU
-    tensors take the plain twin of the mode; CUDA tensors launch the kernel
-    on the current stream, or raise. Its output records no graph: with
-    autograd recording and an input that requires grad it raises (use
-    `spatial_attention`)."""
-    if _on_cpu(k, q, m):
-        return attention_plain(k, q, m, with_lse, bf16_ops)
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (k, q, m)):
-        raise RuntimeError("attention_fwd is forward-only: call "
-                           "spatial_attention, or run it under "
-                           "torch.inference_mode() or torch.no_grad()")
+# The kernels as torch.library custom ops, so that a traced program
+# (engine/export.py) holds them as opaque nodes: each op's CUDA kernel is
+# the launch below, its CPU kernel the plain twin, and its fake kernel the
+# shapes and dtypes. The dispatcher picks by the inputs' device; on any
+# other device (meta) the fake kernel refuses what the CUDA kernel would.
+NAMESPACE = "hupr_tpu_torch"
+
+
+def _op(name: str, schema: str, cpu, cuda, fake):
+    op = torch.library.custom_op(f"{NAMESPACE}::{name}", cpu,
+                                 mutates_args=(), device_types="cpu",
+                                 schema=schema)
+    op.register_kernel("cuda", cuda)
+    op.register_fake(fake)
+    return op
+
+
+def _fake_check(op, tensors, shape, dtypes=KERNEL_DTYPES):
+    """The fake kernels' check: off the CPU, what _check holds the CUDA
+    kernel to (a fake tensor carries the device it stands for)."""
+    if next(iter(tensors.values())).device.type != "cpu":
+        _check(op, tensors, shape, dtypes)
+
+
+def _fwd_cuda(k, q, m, bf16_ops: bool, with_lse: bool):
     _check("attention_fwd", {"k": k, "q": q, "m": m}, m.shape)
     b, n, c = m.shape
     mode = kernel_mode(m.dtype, bf16_ops)
@@ -282,13 +297,28 @@ def attention_fwd(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
     return (out, lse) if with_lse else out
 
 
-def attention_bwd(k, q, m, out, lse, g, bf16_ops: bool = False):
-    """(dk, dq, dm) for output gradient g, from the forward's out and lse,
-    in the inputs' dtype (accumulated in float32). CPU tensors take the
-    plain twin of the mode; CUDA tensors launch the two-pass kernel on the
-    current stream, or raise."""
-    if _on_cpu(k, q, m, out, lse, g):
-        return attention_bwd_plain(k, q, m, out, lse, g, bf16_ops)
+def _fwd_fake(k, q, m, bf16_ops: bool, with_lse: bool):
+    _fake_check("attention_fwd", {"k": k, "q": q, "m": m}, m.shape)
+    out = torch.empty_like(m)
+    if with_lse:
+        return out, m.new_empty(m.shape[:2], dtype=torch.float32)
+    return out
+
+
+_FWD = "(Tensor k, Tensor q, Tensor m, bool bf16_ops) -> "
+_fwd_op = _op(
+    "attention_fwd", _FWD + "Tensor",
+    lambda k, q, m, bf16_ops: attention_plain(k, q, m, False, bf16_ops),
+    lambda k, q, m, bf16_ops: _fwd_cuda(k, q, m, bf16_ops, False),
+    lambda k, q, m, bf16_ops: _fwd_fake(k, q, m, bf16_ops, False))
+_fwd_lse_op = _op(
+    "attention_fwd_lse", _FWD + "(Tensor, Tensor)",
+    lambda k, q, m, bf16_ops: attention_plain(k, q, m, True, bf16_ops),
+    lambda k, q, m, bf16_ops: _fwd_cuda(k, q, m, bf16_ops, True),
+    lambda k, q, m, bf16_ops: _fwd_fake(k, q, m, bf16_ops, True))
+
+
+def _bwd_cuda(k, q, m, out, lse, g, bf16_ops: bool):
     _check("attention_bwd", {"k": k, "q": q, "m": m, "out": out,
                              "lse": lse, "g": g}, m.shape)
     b, n, c = m.shape
@@ -302,15 +332,19 @@ def attention_bwd(k, q, m, out, lse, g, bf16_ops: bool = False):
     return dk, dq, dm
 
 
-def attention_fwd_unfolded(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
-                           bf16_ops: bool = False) -> torch.Tensor:
-    """The microbenchmark's unfolded forward (softmax normalized before the
-    product), float32 inputs and output. CPU tensors take its plain twin;
-    CUDA tensors launch csrc/attention_fwd_unfolded.cu on operands aligned
-    to 16 bytes, rounded to bfloat16 under `bf16_ops` (_operand_tensors),
-    or raise. Nothing on the model's path calls it."""
-    if _on_cpu(k, q, m):
-        return attention_unfolded_plain(k, q, m, bf16_ops)
+def _bwd_fake(k, q, m, out, lse, g, bf16_ops: bool):
+    _fake_check("attention_bwd", {"k": k, "q": q, "m": m, "out": out,
+                                  "lse": lse, "g": g}, m.shape)
+    return tuple(torch.empty_like(k) for _ in range(3))
+
+
+_bwd_op = _op(
+    "attention_bwd", "(Tensor k, Tensor q, Tensor m, Tensor out, Tensor lse,"
+    " Tensor g, bool bf16_ops) -> (Tensor, Tensor, Tensor)",
+    attention_bwd_plain, _bwd_cuda, _bwd_fake)
+
+
+def _unfolded_cuda(k, q, m, bf16_ops: bool):
     _check("attention_fwd_unfolded", {"k": k, "q": q, "m": m}, m.shape,
            dtypes=(torch.float32,))
     b, n, c = m.shape
@@ -320,6 +354,52 @@ def attention_fwd_unfolded(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
     _launch(attention_fwd_unfolded, mode,
             [t.data_ptr() for t in (k, q, m, out)], (b, n, c), _stream(m))
     return out
+
+
+def _unfolded_fake(k, q, m, bf16_ops: bool):
+    _fake_check("attention_fwd_unfolded", {"k": k, "q": q, "m": m}, m.shape,
+                dtypes=(torch.float32,))
+    return torch.empty_like(m)
+
+
+_unfolded_op = _op("attention_fwd_unfolded", _FWD + "Tensor",
+                   attention_unfolded_plain, _unfolded_cuda, _unfolded_fake)
+
+
+def attention_fwd(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
+                  with_lse: bool = False, bf16_ops: bool = False):
+    """(B, N, C) x3 -> out, or (out, lse) with `with_lse`; float32 or
+    bfloat16 inputs of one dtype, out in that dtype, lse float32. The op
+    hupr_tpu_torch::attention_fwd (attention_fwd_lse with `with_lse`): CPU
+    tensors take the plain twin of the mode; CUDA tensors launch the kernel
+    on the current stream, or raise. Its output records no graph: with
+    autograd recording and an input that requires grad it raises (use
+    `spatial_attention`)."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (k, q, m)):
+        raise RuntimeError("attention_fwd is forward-only: call "
+                           "spatial_attention, or run it under "
+                           "torch.inference_mode() or torch.no_grad()")
+    return (_fwd_lse_op if with_lse else _fwd_op)(k, q, m, bf16_ops)
+
+
+def attention_bwd(k, q, m, out, lse, g, bf16_ops: bool = False):
+    """(dk, dq, dm) for output gradient g, from the forward's out and lse,
+    in the inputs' dtype (accumulated in float32). The op
+    hupr_tpu_torch::attention_bwd: CPU tensors take the plain twin of the
+    mode; CUDA tensors launch the two-pass kernel on the current stream,
+    or raise."""
+    return _bwd_op(k, q, m, out, lse, g, bf16_ops)
+
+
+def attention_fwd_unfolded(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
+                           bf16_ops: bool = False) -> torch.Tensor:
+    """The microbenchmark's unfolded forward (softmax normalized before the
+    product), float32 inputs and output. The op
+    hupr_tpu_torch::attention_fwd_unfolded: CPU tensors take its plain
+    twin; CUDA tensors launch csrc/attention_fwd_unfolded.cu on operands
+    aligned to 16 bytes, rounded to bfloat16 under `bf16_ops`
+    (_operand_tensors), or raise. Nothing on the model's path calls it."""
+    return _unfolded_op(k, q, m, bf16_ops)
 
 
 reset_launch_counts()

@@ -645,3 +645,46 @@ def test_two_rank_shared_card_step_equals_one_rank(cuda, tmp_path):
     assert out["launches_by_rank"] == [
         {"attention_fwd": 12 * smoke.DP_STEPS,
          "attention_bwd": 12 * smoke.DP_STEPS}] * 2
+
+
+@pytest.mark.parametrize("compute,bars", [("float32", (1e-6, 0.99)),
+                                          ("bfloat16", (1e-2, 0.95))])
+def test_exported_artifact_on_card(cuda, tmp_path, compute, bars):
+    """An artifact exported on the CPU at the kernels' widths (numFilters
+    32) on 32x32 maps from a reduced capture, loaded onto the card: 12
+    forward kernel launches a request in the compute dtype's mode, and
+    make_e2e_infer's outputs on the same frames at the float32 bars of
+    tests/test_export.py (one program, one card) or the stream's bfloat16
+    bars."""
+    import numpy as np
+
+    from hupr_tpu_torch.engine import export
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops.dsp import RadarParams
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    rp = RadarParams(num_adc_samples=128, num_chirp=48, idx_proc_chirp=16,
+                     num_group_chirp=2)
+    model = HuPRNet(num_filters=32, heatmap_size=32, attn_impl="pallas",
+                    compute_dtype=getattr(torch, compute))
+    state = synthetic_state_dict(model, seed=0, scale=0.03)
+    blob = export.export_serving(model, state, rp, frames=8)
+    path = str(tmp_path / "serving.pt2")
+    export.save_artifact(path, blob)
+    serve = export.load_artifact(path)
+    rng = np.random.default_rng(2)
+    frames = [rng.integers(-300, 300, (8, 4, 48, 128)).astype(np.int16)
+              for _ in range(4)]
+    live = make_e2e_infer(model, None, rp, duration=8)(*frames)
+    attention.reset_launch_counts()
+    pred, maxv = serve(*frames)
+    torch.cuda.synchronize()
+    mode = "f32" if compute == "float32" else "bf16"
+    assert attention.attention_fwd.launches_by_mode == {mode: 12}
+    assert attention.attention_bwd.launches == 0
+    tol, agree = bars
+    assert (maxv - live[1]).abs().max().item() <= tol
+    assert (pred == live[0]).all(dim=-1).float().mean().item() >= agree
+    assert maxv.std().item() > 1e-3

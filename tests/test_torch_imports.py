@@ -28,12 +28,15 @@ BLOCKED = ("jax", "flax", "optax", "hupr_tpu", "yaml", "tqdm", "cv2", "PIL",
 
 # modules that must be among those imported: the streaming, chunk-training,
 # raw-ADC and remat scripts' modules, the preprocessing CLI, the live
-# capture, live serving and the parity audit, and data parallelism
+# capture, live serving and the parity audit, data parallelism, and the
+# serving export, the profiler helpers and the convolution microbenchmark
 NEW = ("data.adc", "engine.chunk_train", "engine.streaming",
        "scripts.remat_memory", "scripts.batch_sweep",
        "preprocessing.process_iwr1843", "data.capture", "scripts.live_serve",
        "scripts.parity_audit", "parallel", "parallel.mesh",
-       "parallel.multihost", "scripts.dp_scaling")
+       "parallel.multihost", "scripts.dp_scaling", "engine.export",
+       "scripts.export_serving", "utils.profiling", "scripts.profile_train",
+       "scripts.conv_microbench")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
@@ -121,11 +124,15 @@ def test_radar_params_validates_geometry():
 def test_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
     """With no card and no request for the CPU, the entry points raise:
     build_model, make_e2e_infer, the preprocessor and its CLI, live
-    serving (script and body) and the parity audit (script and body)."""
+    serving (script and body), the parity audit (script and body), loading
+    a serving artifact, the profiling script and the convolution
+    microbenchmark."""
+    from hupr_tpu_torch.engine import export
     from hupr_tpu_torch.engine.pipeline import make_e2e_infer
     from hupr_tpu_torch.models.hupr import HuPRNet, build_model
     from hupr_tpu_torch.preprocessing import process_iwr1843
-    from hupr_tpu_torch.scripts import live_serve, parity_audit
+    from hupr_tpu_torch.scripts import (conv_microbench, live_serve,
+                                        parity_audit, profile_train)
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     monkeypatch.delenv("HUPR_PLATFORM", raising=False)
@@ -146,6 +153,14 @@ def test_entry_points_refuse_silent_cpu(monkeypatch, tmp_path):
             ["--synthetic"]), cfg)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         parity_audit.main(["--config", "mscsa_prgcn.yaml"])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.load_serving(export.MAGIC)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        export.load_artifact(str(tmp_path / "absent.pt2"))
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        profile_train.main([])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        conv_microbench.main([])
     (tmp_path / "data").mkdir()
     with pytest.raises(RuntimeError, match="device='cpu'"):
         parity_audit.run_audit(parity_audit.build_arg_parser().parse_args(

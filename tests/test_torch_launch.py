@@ -58,10 +58,11 @@ def test_unfolded_wrapper_hands_kernel_its_operands(monkeypatch, bf16_ops,
     """attention_fwd_unfolded hands its C function k, q and m on 16-byte
     boundaries: in f32_bf16ops bfloat16, one cast each of the float32
     inputs; in f32 the inputs themselves, copied only when one starts off a
-    boundary; and a float32 out, in both. The C function is replaced by a
-    recorder that reads the operands' bytes while the call lasts, and the
-    device checks and the stream are bypassed, on the CPU: no kernel
-    runs."""
+    boundary; and a float32 out, in both. The op's CUDA kernel is called
+    directly on CPU tensors (the dispatcher would hand them the plain
+    twin), its C function replaced by a recorder that reads the operands'
+    bytes while the call lasts, and the device checks and the stream
+    bypassed: no kernel runs."""
     calls = []
     b, n, c = 2, 8, 64
     size = b * n * c
@@ -73,7 +74,6 @@ def test_unfolded_wrapper_hands_kernel_its_operands(monkeypatch, bf16_ops,
         return 0
 
     monkeypatch.setattr(attention, "_kernel", lambda name: c_function)
-    monkeypatch.setattr(attention, "_on_cpu", lambda *ts: False)
     monkeypatch.setattr(attention, "_check", lambda *a, **kw: None)
     monkeypatch.setattr(attention, "_stream", lambda t: None)
     base = torch.randn(3 * size + 1)
@@ -81,7 +81,7 @@ def test_unfolded_wrapper_hands_kernel_its_operands(monkeypatch, bf16_ops,
                for i in range(3))
     mode = attention.kernel_mode(torch.float32, bf16_ops)
     before = attention.attention_fwd_unfolded.launches_by_mode.get(mode, 0)
-    out = attention.attention_fwd_unfolded(k, q, m, bf16_ops=bf16_ops)
+    out = attention._unfolded_cuda(k, q, m, bf16_ops)
     (args, raw), = calls
     assert args[4:] == (b, n, c, 0, int(bf16_ops), None)
     assert out.dtype == torch.float32 and args[3] == out.data_ptr()
