@@ -101,7 +101,18 @@
    and main.run in a world of one on NCCL against the plain Runner. Its
    ms per step (dp_shared_card_ms_per_step) is two ranks time-slicing
    one card, not a scaling number. No profiler runs here.
-17. AOT serving export (engine/export.py), right after the float32 and
+17. Frame-axis sharding of one request (shard_phase): two ranks sharing
+   the card over gloo, each called with the whole request, split its 32
+   frames (make_e2e_infer(mesh=), the window's halo exchanged), in the
+   float32 and bfloat16 serving configs, and an 8-frame request of two
+   4-frame sequences (blocks smaller than the halo); sequence eval
+   (SequenceEvaluator(mesh=)) over one 64-frame sequence at batch 32.
+   Each rank's results held to this process's at the stream's bars (12
+   launches a request and 24 a sequence on each rank); a world of one on
+   NCCL equal to the unsharded entry bit for bit. Its frames/s
+   (shard_frames_per_sec) is two ranks time-slicing one card, not a
+   scaling number. No profiler runs here.
+18. AOT serving export (engine/export.py), right after the float32 and
    the bfloat16 slices: each config's program exported on the CPU with
    the slice's weights into build/export/, loaded onto the card and
    serving the slice's requests in turns with make_e2e_infer (12 launches
@@ -111,12 +122,12 @@
    kernel, and an artifact exported on the card serves what the
    CPU-exported one serves. Artifact MB, export and load seconds,
    frames/s beside make_e2e_infer's.
-18. scripts/profile_train.py in a process of its own per mode (train and
+19. scripts/profile_train.py in a process of its own per mode (train and
    serve): the attention kernels among its attributed names, its launch
    counts, its total beside the `profile` line's busy ms (read, not held).
-19. scripts/conv_microbench.py at its defaults in float32 and bfloat16,
+20. scripts/conv_microbench.py at its defaults in float32 and bfloat16,
    its own agreement assert holding each reformulation to cuDNN's.
-20. Prints the `kernels` line (every kernel and mode), then ends with one
+21. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -3339,6 +3350,30 @@ def parallel_phase(torch, card: str) -> dict:
     return result
 
 
+def shard_main(torch, card: str, sl: dict, sl16: dict) -> dict:
+    """shard_phase at full width in a directory of its own; prints
+    shard_frames_per_sec per config beside the one-process slice's
+    frames/s."""
+    import shutil
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="hupr_shard_")
+    try:
+        result = shard_phase(torch, card, root)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for mode, slice_result in (("f32", sl), ("bf16", sl16)):
+        r = result[mode]
+        ms = ", ".join(f"{m:.2f}" for m in r["rank_ms_per_request"])
+        print(f"shard_frames_per_sec {mode} "
+              f"{r['shard_frames_per_sec']:.2f} (two ranks sharing one "
+              f"card over gloo, {FRAMES // SHARD_WORLD} frames each, not a "
+              f"scaling number; rank ms a request {ms}) beside the "
+              f"one-process slice {slice_result['frames_per_s']:.2f}",
+              flush=True)
+    return result
+
+
 def dp_worker(argv) -> int:
     """A rank of the parallel phase: `--dp-worker job root rank world
     rendezvous opts`. Saves its result to root/<job>-rank<rank>.pt."""
@@ -3355,11 +3390,15 @@ def dp_worker(argv) -> int:
         return 1
     if job == "nccl":
         result = dp_nccl_worker(torch, root, opts["data"])
+    elif job == "shard_nccl":
+        result = shard_nccl_worker(torch)
     else:
         multihost.initialize(backend="gloo", init_method=f"file://{rdv}")
         try:
             if job == "runner":
                 result = dp_runner_worker(torch, root)
+            elif job == "shard":
+                result = shard_worker(torch, root, opts)
             else:
                 kind = job[len("step_"):]
                 w0 = torch.load(os.path.join(root, f"w0-{kind}.pt"))
@@ -3442,6 +3481,286 @@ def dp_nccl_worker(torch, root: str, data: str) -> dict:
             os.path.join("logs", name, "checkpoint.pth"),
             weights_only=True)["model_state_dict"]
     return out
+
+
+# the shard phase: one request's frames split over two ranks sharing the
+# card (gloo: NCCL refuses two ranks on one device), in the flagship
+# float32 and the fast bfloat16 serving configs: SHARD_REQUESTS timed
+# FRAMES-frame requests after a warm-up one (FRAMES / SHARD_WORLD frames a
+# rank), and a SHARD_SMALL request (frames, duration) whose blocks are
+# smaller than the window's halo and end at a sequence boundary; sequence
+# eval over one RUNNER_FRAMES-frame sequence at TEST.batchSize 32. Each
+# is held against the same entry in this one process on the card at the
+# stream's bars (a rank encodes and decodes 16 frames a call where one
+# process does 32, so the card sums in other orders); a world of one on
+# NCCL against the unsharded entry bit for bit. Two ranks time-slice one
+# card: its frames/s is not a scaling number
+SHARD_WORLD, SHARD_REQUESTS, SHARD_SMALL = 2, 4, (8, 4)
+SHARD_BARS = {"f32": (MAXVAL_TOL, STREAM_AGREE["f32"]),
+              "bf16": (MAXVAL_TOL_BF16, STREAM_AGREE["bf16"])}
+# sequence eval's losses, one process against two ranks: the runner's
+# float32 loss bar
+SHARD_LOSS_RTOL = TRAIN_BARS["f32"]["loss_rtol"]
+
+
+def shard_config(mode: str, spatial: int = 64):
+    """The flagship float32 ("f32") or the fast bfloat16 ("bf16") serving
+    config; spatial 32 takes a reduced capture (128 ADC samples, 48
+    chirps: 8 kept chirps, 32x32 maps) at the kernels' width (numFilters
+    32)."""
+    from hupr_tpu_torch.config import (fast_serving_config,
+                                       flagship_serving_config)
+
+    cfg = flagship_serving_config() if mode == "f32" \
+        else fast_serving_config()
+    if spatial != 64:
+        d = cfg.DATASET
+        d.adcParams = dict(num_adc_samples=128, num_chirp=48,
+                           idx_proc_chirp=16, num_group_chirp=2)
+        d.rangeSize = d.azimuthSize = d.heatmapSize = spatial
+        d.imgSize, d.numChirps = 4 * spatial, 8
+    return cfg
+
+
+def shard_requests(torch, cfg, frames: int, count: int, seed: int) -> list:
+    """`count` requests of `frames` raw int16 frames per view, made on the
+    card from `seed` (the same in every process)."""
+    rp = cfg.DATASET.radar_params()
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    shape = (frames, rp.num_rx, rp.num_chirp, rp.num_adc_samples)
+    return [tuple(torch.randint(-300, 300, shape, generator=gen,
+                                device="cuda", dtype=torch.int16)
+                  for _ in range(4)) for _ in range(count)]
+
+
+def shard_serve(torch, mesh, mode: str, spatial: int) -> dict:
+    """make_e2e_infer on `mode`'s config with the slice's seeded N(0, 0.03)
+    weights, over `mesh` (None: this process alone): a warm-up request,
+    SHARD_REQUESTS timed ones (host clock, the card synchronized after
+    each) and one SHARD_SMALL request. Returns the outputs on the host,
+    ms a request, and the launches of the timed requests and of the small
+    one."""
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    cfg = shard_config(mode, spatial)
+    ds = cfg.DATASET
+    model = build_model(cfg, "cpu")
+    state = synthetic_state_dict(model, seed=0, scale=0.03)
+
+    def entry(duration):
+        return make_e2e_infer(model, state, ds.radar_params(),
+                              duration=duration, group=ds.numGroupFrames,
+                              num_frames=ds.numFrames, device="cuda",
+                              mesh=mesh)
+
+    run = entry(FRAMES)
+    requests = shard_requests(torch, cfg, FRAMES, 1 + SHARD_REQUESTS, 7)
+    run(*requests[0])
+    torch.cuda.synchronize()
+    attention.reset_launch_counts()
+    outs, ms = [], []
+    for req in requests[1:]:
+        t0 = time.perf_counter()
+        outs.append(run(*req))
+        torch.cuda.synchronize()
+        ms.append(1e3 * (time.perf_counter() - t0))
+    launches = dict(attention.attention_fwd.launches_by_mode)
+    frames, duration = SHARD_SMALL
+    small = shard_requests(torch, cfg, frames, 1, 8)[0]
+    run_small = entry(duration)
+    attention.reset_launch_counts()
+    outs.append(run_small(*small))
+    torch.cuda.synchronize()
+    return {"outs": [tuple(t.cpu() for t in o) for o in outs], "ms": ms,
+            "launches": launches,
+            "small_launches": dict(attention.attention_fwd.launches_by_mode)}
+
+
+def shard_seq_eval(torch, mesh, data: str) -> dict:
+    """SequenceEvaluator over `mesh` (None: this process alone) on the
+    flagship recipe with the seeded N(0, 0.03) weights, over the one
+    RUNNER_FRAMES-frame test sequence under `data` at TEST.batchSize 32.
+    Returns the batches on the host, the launches and the seconds."""
+    from hupr_tpu_torch.data.dataset import get_dataset
+    from hupr_tpu_torch.engine.seq_eval import SequenceEvaluator
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    cfg = runner_config(data)
+    model = build_model(cfg, "cuda")
+    model.load_state_dict(synthetic_state_dict(model, seed=0, scale=0.03))
+    ev = SequenceEvaluator(model, cfg, mesh=mesh)
+    if (ev.mesh is None) != (mesh is None):
+        raise AssertionError("SequenceEvaluator's gate refused the mesh")
+    ds = get_dataset("test", cfg)
+    attention.reset_launch_counts()
+    batches, seconds = timed(torch, lambda: [
+        ({k: v.cpu() for k, v in out.items()}, ids, t)
+        for out, ids, _, t in ev.eval_batches(ds)])
+    return {"batches": batches, "seconds": seconds,
+            "launches": dict(attention.attention_fwd.launches_by_mode)}
+
+
+def shard_worker(torch, root: str, opts: dict) -> dict:
+    """A rank of the shard phase (its gloo group set up by dp_worker)."""
+    from hupr_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh()
+    out = {mode: shard_serve(torch, mesh, mode, opts["spatial"])
+           for mode in opts["modes"]}
+    if opts.get("data"):
+        out["seq"] = shard_seq_eval(torch, mesh, opts["data"])
+    return out
+
+
+def shard_nccl_worker(torch) -> dict:
+    """make_e2e_infer over a world of one on NCCL (this process's group,
+    from the environment) against the unsharded entry, on one request in
+    each config."""
+    import torch.distributed as dist
+
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.parallel import make_mesh, multihost
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    multihost.initialize()
+    try:
+        mesh = make_mesh()
+        out = {"backend": dist.get_backend(), "world": mesh.world}
+        for mode in ("f32", "bf16"):
+            cfg = shard_config(mode)
+            ds = cfg.DATASET
+            model = build_model(cfg, "cpu")
+            state = synthetic_state_dict(model, seed=0, scale=0.03)
+            req = shard_requests(torch, cfg, FRAMES, 1, 7)[0]
+            got = [make_e2e_infer(model, state, ds.radar_params(),
+                                  duration=FRAMES, group=ds.numGroupFrames,
+                                  num_frames=ds.numFrames, mesh=m)(*req)
+                   for m in (mesh, None)]
+            out[mode] = all(torch.equal(a, b) for a, b in zip(*got))
+    finally:
+        dist.destroy_process_group()
+    return out
+
+
+def shard_hold(torch, label: str, ranks: list, one: list, bars) -> dict:
+    """Every rank's outputs against the one process's: the replicas equal
+    bit for bit, shapes, finite, peaks spread; maxvals and keypoints at
+    `bars`. Returns the readings; raises past a bar."""
+    tol, agree_bar = bars
+    err, agree = decode_vs(ranks[0], one)
+    same = all(torch.equal(a, b) for r in ranks[1:]
+               for got, ref in zip(r, ranks[0]) for a, b in zip(got, ref))
+    ok_shapes = all(tuple(p.shape) == tuple(q.shape) and tuple(m.shape)
+                    == tuple(n.shape) and torch.isfinite(m).all()
+                    for (p, m), (q, n) in zip(ranks[0], one))
+    spread = all(m.std().item() > 1e-3 and m.max().item() < 1.0
+                 for _, m in one)
+    out = {"maxvals_max_abs_err": err, "keypoint_agreement": agree,
+           "replicas_equal": same}
+    if not (err <= tol and agree >= agree_bar and same and ok_shapes
+            and spread):
+        raise AssertionError(f"shard {label}: {out}, shapes and finite "
+                             f"{ok_shapes}, peaks spread {spread}")
+    return out
+
+
+def shard_phase(torch, card: str, root: str, spatial: int = 64,
+                modes=("f32", "bf16"), seq_eval: bool = True,
+                world_one: bool = True) -> dict:
+    """The frame-axis sharding of one request on the card: shard_worker
+    in SHARD_WORLD ranks sharing the card, against shard_serve and
+    shard_seq_eval in this process on the same requests and weights (12
+    launches a request and 24 a 64-frame sequence on each rank); with
+    `world_one`, shard_nccl_worker, while this process computes its
+    references (so this process times nothing). Prints the `shard` line;
+    returns its readings."""
+    t0 = time.perf_counter()
+    data = write_sequence(root, RUNNER_FRAMES) if seq_eval else None
+    opts = {"spatial": spatial, "modes": list(modes), "data": data}
+    ranks = dp_spawn("shard", root, SHARD_WORLD, opts=opts)
+    with ThreadPoolExecutor(1) as pool:
+        world1 = pool.submit(dp_spawn, "shard_nccl", root, 1, env={
+            "MASTER_ADDR": "127.0.0.1",
+            "MASTER_PORT": str(free_port())}) if world_one else None
+        result = shard_holds(torch, card, ranks, modes, spatial, data)
+        if world1 is not None:
+            (w1,) = world1.result()
+    failed = result.pop("failed")
+    if world_one:
+        result["nccl_world1"] = w1
+        if not (w1["backend"] == "nccl" and w1["world"] == 1
+                and w1["f32"] and w1["bf16"]):
+            failed.append(f"nccl world of one {w1}")
+    result["seconds"] = time.perf_counter() - t0
+    print(json.dumps({"shard": result}), flush=True)
+    if failed:
+        raise AssertionError(f"shard checks failed: {failed}")
+    return result
+
+
+def shard_holds(torch, card: str, ranks: list, modes, spatial: int,
+                data) -> dict:
+    """shard_phase's holds of the ranks' results against this process's
+    on the same requests and weights, and their readings; the failed
+    checks under "failed"."""
+    result = {"card": card, "world": SHARD_WORLD, "spatial": spatial,
+              "frames_per_request": FRAMES, "requests": SHARD_REQUESTS,
+              "small_request": {"frames": SHARD_SMALL[0],
+                                "duration": SHARD_SMALL[1]}}
+    failed = []
+    for mode in modes:
+        one = shard_serve(torch, None, mode, spatial)
+        per_rank = [r[mode] for r in ranks]
+        want = {mode: 12 * SHARD_REQUESTS}
+        launches = [r["launches"] for r in per_rank]
+        small = [r["small_launches"] for r in per_rank]
+        wall = max(sum(r["ms"]) for r in per_rank)
+        result[mode] = {
+            **shard_hold(torch, mode, [r["outs"] for r in per_rank],
+                         one["outs"], SHARD_BARS[mode]),
+            "shard_frames_per_sec": 1e3 * FRAMES * SHARD_REQUESTS / wall,
+            "rank_ms_per_request": [statistics.mean(r["ms"])
+                                    for r in per_rank],
+            "launches_by_rank": [lc.get(mode, 0) for lc in launches],
+            "small_launches_by_rank": [lc.get(mode, 0) for lc in small]}
+        if any(lc != want for lc in launches) or \
+                any(lc != {mode: 12} for lc in small):
+            failed.append(f"{mode} launches {launches}, small {small}")
+    if data:
+        one = shard_seq_eval(torch, None, data)
+        r0 = ranks[0]["seq"]
+        loss_rel = max(abs(got[k].item() - ref[k].item()) / abs(ref[k].item())
+                       for (got, _, _), (ref, _, _) in
+                       zip(r0["batches"], one["batches"])
+                       for k in ("loss1", "loss2"))
+        outs = [[(o["pred2d"][:t], o["maxvals"][:t])
+                 for o, _, t in r["seq"]["batches"]] for r in ranks]
+        ref = [(o["pred2d"][:t], o["maxvals"][:t])
+               for o, _, t in one["batches"]]
+        same_ids = all([i.tolist() for _, i, _ in r["seq"]["batches"]]
+                       == [i.tolist() for _, i, _ in one["batches"]]
+                       for r in ranks)
+        launches = [r["seq"]["launches"] for r in ranks]
+        n_batches = -(-RUNNER_FRAMES // 32)
+        result["seq_eval"] = {
+            **shard_hold(torch, "seq_eval", outs, ref, SHARD_BARS["f32"]),
+            "loss_max_rel_err": loss_rel, "batches": len(ref),
+            "ids_equal": same_ids,
+            "seconds_by_rank": [r["seq"]["seconds"] for r in ranks],
+            "launches_by_rank": [lc.get("f32", 0) for lc in launches]}
+        if not (loss_rel <= SHARD_LOSS_RTOL and same_ids
+                and len(ref) == n_batches):
+            failed.append(f"seq_eval losses {loss_rel}, ids {same_ids}")
+        if any(lc != {"f32": 12 * n_batches} for lc in launches):
+            failed.append(f"seq_eval launches {launches}")
+    result["failed"] = failed
+    return result
 
 
 # the export phase: the artifacts (144 MB each) under the gitignored
@@ -3775,6 +4094,7 @@ def main() -> int:
     fe = front_end_phase(torch, smi)
     torch.cuda.empty_cache()
     par = parallel_phase(torch, smi)
+    sh = shard_main(torch, smi, sl, sl16)
     pt = profile_train_phase(smi, busy)
     conv_micro_phase(torch, smi)
     backward_passes(torch)
@@ -3789,6 +4109,15 @@ def main() -> int:
     def by_rank(name, runs, key):
         """The parallel phase's launches of `key`, one entry per rank."""
         return {f"{name}_rank{r}": lc[key] for r, lc in enumerate(runs)}
+
+    def shard_launches(result, name):
+        """The shard phase's launches, one entry per rank, the small
+        request's apart."""
+        out = {f"{name}_rank{r}": n
+               for r, n in enumerate(result["launches_by_rank"])}
+        out.update({f"{name}_small_rank{r}": n for r, n in
+                    enumerate(result.get("small_launches_by_rank", []))})
+        return out
 
     def b1(mode):
         return {key: 4 * sum(r[key] for r in b1_rows if r["mode"] == mode)
@@ -3825,7 +4154,9 @@ def main() -> int:
                                 "attention_fwd"),
                       **by_rank("parallel_runner",
                                 par["runner"]["launches_by_rank"],
-                                "attention_fwd")},
+                                "attention_fwd"),
+                      **shard_launches(sh["f32"], "shard"),
+                      **shard_launches(sh["seq_eval"], "shard_seq_eval")},
                      rows, 4, per_request, stream_B1=b1("f32"),
                      stream_traced=st["f32"][
                          "traced_attention_fwd_kernels"],
@@ -3872,7 +4203,8 @@ def main() -> int:
                                 "attention_fwd"]["bf16"],
                             **by_rank("parallel_chunk",
                                       par["bf16_chunk"]["launches_by_rank"],
-                                      "attention_fwd")}
+                                      "attention_fwd"),
+                            **shard_launches(sh["bf16"], "shard_bf16")}
             bwd_launches = {"train_bf16": tr16["attention_bwd_launches"],
                             "runner_fast": fast["attention_bwd"]["bf16"],
                             "train_max": tm["attention_bwd_launches"],

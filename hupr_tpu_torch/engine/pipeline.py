@@ -86,39 +86,83 @@ class ServingProgram(nn.Module):
                               self.params)
         return cube_chirp_input(c.real, c.imag, self.num_frames)
 
-    def forward(self, hori_re, hori_im, vert_re, vert_im):
-        hori = self._cube_input(hori_re, hori_im)
-        vert = self._cube_input(vert_re, vert_im)
-        ra, re = self.model.chirp_maps(hori, vert)
-        ra = window_stack_sequences(ra[:, 0], self.group,
-                                    self.duration)          # (F,G,R,A,C)
-        re = window_stack_sequences(re[:, 0], self.group, self.duration)
+    def chirp_maps(self, hori_re, hori_im, vert_re, vert_im):
+        """Raw I/Q frames -> the per-frame encoded maps (F, R, A, C) per
+        view: the DSP, the normalized chirp input and the MNet encode."""
+        ra, re = self.model.chirp_maps(self._cube_input(hori_re, hori_im),
+                                       self._cube_input(vert_re, vert_im))
+        return ra[:, 0], re[:, 0]
+
+    def keypoints(self, ra, re):
+        """Windows of the encoded maps (B, G, R, A, C) per view ->
+        (pred2d (B, K, 2), maxvals (B, K, 1))."""
         _, gcn = self.model.pose_from_maps(ra, re)
         k, h = gcn.shape[2], gcn.shape[3]
         return get_max_preds(gcn.reshape(-1, k, h, h))
 
+    def forward(self, hori_re, hori_im, vert_re, vert_im):
+        ra, re = self.chirp_maps(hori_re, hori_im, vert_re, vert_im)
+        return self.keypoints(
+            window_stack_sequences(ra, self.group, self.duration),
+            window_stack_sequences(re, self.group, self.duration))
+
+
+def _sharded_serving(program: ServingProgram, mesh):
+    """ServingProgram's body with the frame axis split over `mesh`'s
+    ranks: every rank is called with the whole request and runs the DSP
+    and the chirp encode on its frame block only, its windows after the
+    halo exchange, and the pose decode on them; pred2d and maxvals are
+    gathered, so every rank returns the whole request's."""
+    from hupr_tpu_torch.parallel.halo import frame_block, window_stack_sharded
+    from hupr_tpu_torch.parallel.mesh import gather_blocks
+
+    def run(hori_re, hori_im, vert_re, vert_im):
+        f = hori_re.shape[0]
+        lo, hi = frame_block(f, mesh)
+        ra, re = program.chirp_maps(*(
+            torch.as_tensor(x[lo:hi], device=mesh.device)
+            for x in (hori_re, hori_im, vert_re, vert_im)))
+        pred, maxv = program.keypoints(*(
+            window_stack_sharded(m, mesh, program.group, program.duration, f)
+            for m in (ra, re)))
+        return gather_blocks(pred, mesh), gather_blocks(maxv, mesh)
+
+    return run
+
 
 def make_e2e_infer(model, state=None, params: RadarParams = RadarParams(),
                    duration: int = 600, group: int = 8, num_frames: int = 8,
-                   device=None):
+                   device=None, mesh=None):
     """Returns run(hori_re, hori_im, vert_re, vert_im) -> (pred2d (F, K, 2),
     maxvals (F, K, 1)) over F raw ADC frames of one sequence per radar
     view, each plane (F, RX=4, 192, ADC=256), int16 (the DCA1000's sample
     format) or float, numpy or torch. `state`, when given, is loaded into
     `model` strictly. Runs `ServingProgram` on the card unless `device`
     says otherwise, in the model's compute dtype where it has one and in
-    full float32 elsewhere (TF32 off for the call)."""
-    dev = resolve_device(device)
+    full float32 elsewhere (TF32 off for the call).
+
+    With `mesh` (parallel.mesh.Mesh) of more than one rank, every rank
+    calls run with the whole request and the frame axis is split over the
+    ranks (parallel/halo.py): the weights are the same on every rank, each
+    encodes its own frame block on `mesh.device`, the sliding window's
+    edge frames are exchanged, and every rank returns the whole result.
+    F must divide by the world size. A world of one is the unsharded
+    program."""
+    dev = mesh.device if mesh is not None else resolve_device(device)
     model = model.to(dev).eval()
     if state is not None:
         model.load_state_dict(state, strict=True)
     program = ServingProgram(model, params, duration, group,
                              num_frames).eval()
+    if mesh is not None and mesh.parallel:
+        body = _sharded_serving(program, mesh)
+    else:
+        def body(*planes):
+            return program(*(torch.as_tensor(x, device=dev) for x in planes))
 
     @torch.inference_mode()
     @float32_math()
     def run(hori_re, hori_im, vert_re, vert_im):
-        return program(*(torch.as_tensor(x, device=dev)
-                         for x in (hori_re, hori_im, vert_re, vert_im)))
+        return body(hori_re, hori_im, vert_re, vert_im)
 
     return run

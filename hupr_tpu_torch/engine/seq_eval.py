@@ -30,6 +30,19 @@ decodes it and runs the radar cube DSP on the card first
 (chunk_train.make_adc_frame_prep): evaluation straight from the sensor's
 .bin files, with no offline .npy hop. Its results equal the cube-fed
 path's on cubes the same DSP wrote (tests/test_torch_chunk.py).
+
+With a mesh (parallel.mesh.Mesh) of more than one rank, one sequence is
+split over the ranks, as the JAX package splits it over a device mesh:
+each rank loads and encodes only its block of the sequence's frames
+(parallel/halo.frame_block), the encoded maps are gathered to every rank,
+each rank runs its TEST.batchSize / world windows of every batch, and the
+losses are the global masked means and the outputs the whole batch's, so
+that every rank yields what the unsharded evaluator yields. It shards
+only when the world size divides both DATASET.duration and TEST.batchSize
+and runs unsharded otherwise. The Runner passes no mesh: it splits eval by
+whole sequences over its processes (engine/runner.py), as the JAX
+package's multi-process Runner does, and with one card a process there is
+no second device in a process to split a sequence over.
 """
 
 from __future__ import annotations
@@ -46,6 +59,8 @@ from hupr_tpu_torch.engine.chunk_train import (cube_frame_prep,
 from hupr_tpu_torch.engine.pipeline import replicate_pad
 from hupr_tpu_torch.ops.heatmap import (bce_loss, generate_target_batch,
                                         get_max_preds)
+from hupr_tpu_torch.parallel.halo import frame_block
+from hupr_tpu_torch.parallel.mesh import all_reduce_sum, gather_blocks
 from hupr_tpu_torch.utils.device import float32_math
 from hupr_tpu_torch.utils.prefetch import stop_aware_put
 from hupr_tpu_torch.utils.transfer import cast_for_transfer, transfer_dtype
@@ -70,7 +85,12 @@ def _planes_prep(planes):
     return cube_frame_prep(torch.stack(planes, dim=2))
 
 
-def make_sequence_encoder(model, group: int, frame_prep=_planes_prep):
+def _sharded(mesh) -> bool:
+    return mesh is not None and mesh.parallel
+
+
+def make_sequence_encoder(model, group: int, frame_prep=_planes_prep,
+                          mesh=None):
     """encode(hori, vert, pad_to) -> (ra_pad, re_pad).
 
     Inputs are one sequence's per-view payloads for `frame_prep`, on the
@@ -80,11 +100,19 @@ def make_sequence_encoder(model, group: int, frame_prep=_planes_prep):
     chirp-encoded maps (pad_to + G - 1, R, A, Fc) per view,
     replicate-padded for window slicing: frames past F repeat the last
     frame, so that the last window batch is whole (its extra windows are
-    masked out of the loss and dropped by the caller)."""
+    masked out of the loss and dropped by the caller).
+
+    With `mesh` of more than one rank, the payloads are this rank's frame
+    block of the sequence (parallel/halo.frame_block) and the encoded
+    maps are gathered from every rank before the padding: every rank
+    returns the whole sequence's."""
+    sharded = _sharded(mesh)
 
     def encode(hori, vert, pad_to: int):
         ra, re_m = model.chirp_maps(frame_prep(hori), frame_prep(vert))
         ra, re_m = ra[:, 0], re_m[:, 0]              # (F, R, A, Fc)
+        if sharded:
+            ra, re_m = gather_blocks(ra, mesh), gather_blocks(re_m, mesh)
         return (replicate_pad(ra, group, pad_to),
                 replicate_pad(re_m, group, pad_to))
 
@@ -92,25 +120,36 @@ def make_sequence_encoder(model, group: int, frame_prep=_planes_prep):
 
 
 def make_adc_sequence_encoder(model, group: int, radar_params=None,
-                              num_frames: int = 8):
+                              num_frames: int = 8, mesh=None):
     """make_sequence_encoder on raw int16 DCA1000 stream slices: decode,
     radar cube DSP, normalize and the MNet chirp encode on the card."""
     return make_sequence_encoder(
-        model, group, make_adc_frame_prep(radar_params, num_frames))
+        model, group, make_adc_frame_prep(radar_params, num_frames), mesh)
 
 
 def make_window_eval_step(model, group: int, geometry=(14, 64, 256),
-                          batch_size: int = 32):
+                          batch_size: int = 32, mesh=None):
     """step(ra_pad, re_pad, joints, mask, start) -> the eval step's dict
     for the `batch_size` consecutive windows that begin at frame `start`
-    (engine/steps.make_eval_step's outputs, lossDecay == -1)."""
+    (engine/steps.make_eval_step's outputs, lossDecay == -1).
+
+    With `mesh` of more than one rank (the world size dividing
+    `batch_size`), each rank runs its block of batch_size / world
+    windows, `joints` and `mask` being that block's rows: loss1 and loss2
+    are the global masked means (each rank's masked sum over the global
+    real count, summed over the ranks) and pred2d, gt2d, maxvals and
+    predHeatmap the whole batch's, on every rank."""
     num_keypoints, heatmap_size, img_size = geometry
+    sharded = _sharded(mesh)
+    first, last = frame_block(batch_size, mesh) if sharded \
+        else (0, batch_size)
+    rows = last - first
 
     def windows(maps_pad, start):
-        raw = maps_pad[start:start + batch_size + group - 1]
+        raw = maps_pad[start + first:start + first + rows + group - 1]
         # window b = padded frames [b, b + G): pipeline.window_stack's
         # slices, from an offset
-        return torch.stack([raw[j:j + batch_size] for j in range(group)],
+        return torch.stack([raw[j:j + rows] for j in range(group)],
                            dim=1)                    # (B, G, R, A, Fc)
 
     def step(ra_pad, re_pad, joints, mask, start: int):
@@ -122,13 +161,19 @@ def make_window_eval_step(model, group: int, geometry=(14, 64, 256),
         k, h = targets.shape[1], targets.shape[2]
         main = heatmap.reshape(-1, k, h, h)
         refined = gcn.reshape(-1, k, h, h)
-        loss1 = bce_loss(main, targets, mask)
-        loss2 = bce_loss(refined, targets, mask)
+        count = all_reduce_sum(mask.to(torch.float32).sum()) \
+            if sharded else None
+        loss1 = bce_loss(main, targets, mask, count)
+        loss2 = bce_loss(refined, targets, mask, count)
         pred2d, maxvals = get_max_preds(refined)
         gt_dec, _ = get_max_preds(targets)
+        out = {"pred2d": pred2d, "gt2d": gt_dec, "maxvals": maxvals,
+               "predHeatmap": refined}
+        if sharded:
+            loss1, loss2 = all_reduce_sum(torch.stack([loss1, loss2]))
+            out = {k: gather_blocks(v, mesh) for k, v in out.items()}
         return {"loss": loss1 + loss2, "loss1": loss1, "loss2": loss2,
-                "pred2d": pred2d, "gt2d": gt_dec, "maxvals": maxvals,
-                "predHeatmap": refined}
+                **out}
 
     return step
 
@@ -141,9 +186,12 @@ class SequenceEvaluator:
     model's current weights. Each call runs in eval mode, under
     torch.inference_mode and float32_math (TF32 off). With `adc_source`
     (a data.adc.ADCFrameSource; TEST.sequenceSource: adc) it reads raw
-    int16 capture slices instead of .npy cubes."""
+    int16 capture slices instead of .npy cubes. With `mesh` (every rank
+    calling eval_batches alike) each sequence is split over the ranks
+    when the world size divides both DATASET.duration and TEST.batchSize
+    (the module's docstring), and runs unsharded otherwise."""
 
-    def __init__(self, model, cfg, adc_source=None):
+    def __init__(self, model, cfg, adc_source=None, mesh=None):
         d = cfg.DATASET
         self.model = model
         self.device = next(model.parameters()).device
@@ -153,13 +201,21 @@ class SequenceEvaluator:
         self.batch_size = cfg.TEST.batchSize
         self.geometry = (d.numKeypoints, d.heatmapSize, d.imgSize)
         self.adc = adc_source
+        # all or nothing, as the JAX package's gate: the encode's frame
+        # blocks and the step's window blocks both split evenly
+        world = mesh.world if mesh is not None else 1
+        if not (world > 1 and d.duration % world == 0
+                and self.batch_size % world == 0):
+            mesh = None
+        self.mesh = mesh
         if adc_source is not None:
             self._encode = make_adc_sequence_encoder(
-                model, self.group, d.radar_params(), d.numFrames)
+                model, self.group, d.radar_params(), d.numFrames, mesh)
         else:
-            self._encode = make_sequence_encoder(model, self.group)
+            self._encode = make_sequence_encoder(model, self.group,
+                                                 mesh=mesh)
         self._step = make_window_eval_step(model, self.group, self.geometry,
-                                           self.batch_size)
+                                           self.batch_size, mesh)
 
     @staticmethod
     def applicable(dataset, cfg) -> bool:
@@ -235,8 +291,10 @@ class SequenceEvaluator:
         def producer(q):
             try:
                 for start, length in groups:
-                    if not put(q, (start, length,
-                                   self._load_planes(dataset, start, length))):
+                    lo, hi = (frame_block(length, self.mesh)
+                              if self.mesh is not None else (0, length))
+                    if not put(q, (start, length, self._load_planes(
+                            dataset, start + lo, hi - lo))):
                         return
             except BaseException as exc:    # propagate to the consumer
                 put(q, exc)
@@ -272,13 +330,18 @@ class SequenceEvaluator:
                 if dev.type == "cuda":
                     joints = joints.pin_memory()
                 joints = joints.to(dev, non_blocking=True)
-                rows = torch.arange(self.batch_size, device=dev)
+                # this rank's block of each batch's rows (all of it
+                # unsharded)
+                first, last = (frame_block(self.batch_size, self.mesh)
+                               if self.mesh is not None
+                               else (0, self.batch_size))
+                row_ids = torch.arange(first, last, device=dev)
                 for b in range(n_batches):
                     s = b * self.batch_size
                     true_b = min(self.batch_size, length - s)
-                    mask = (rows < true_b).to(torch.float32)
+                    mask = (row_ids < true_b).to(torch.float32)
                     out = self._call(self._step, ra_pad, re_pad,
-                                     joints[s:s + self.batch_size], mask, s)
+                                     joints[s + first:s + last], mask, s)
                     image_ids = np.asarray(
                         dataset.image_ids[start + s:start + s + true_b])
                     bbox = dataset.bboxes[start + s:start + s + true_b]

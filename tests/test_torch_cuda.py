@@ -647,6 +647,25 @@ def test_two_rank_shared_card_step_equals_one_rank(cuda, tmp_path):
          "attention_bwd": 12 * smoke.DP_STEPS}] * 2
 
 
+def test_two_rank_shared_card_request_equals_one_process(cuda, tmp_path):
+    """One request's 32 frames split over two processes sharing the card
+    over gloo (chip_smoke.shard_phase; NCCL refuses two ranks on one
+    device), at the kernels' width (numFilters 32) on 32x32 maps from a
+    reduced capture, against make_e2e_infer in this process on the same
+    requests and weights: the ranks' results equal bit for bit, maxvals
+    within 1e-4 and 99 % of keypoints equal, 12 launches a request on each
+    rank, the same for an 8-frame request of two 4-frame sequences."""
+    smoke = _chip_smoke()
+    out = smoke.shard_phase(torch, "card test", str(tmp_path), spatial=32,
+                            modes=("f32",), seq_eval=False, world_one=False)
+    f32 = out["f32"]
+    assert f32["replicas_equal"]
+    assert f32["maxvals_max_abs_err"] <= smoke.MAXVAL_TOL
+    assert f32["keypoint_agreement"] >= smoke.STREAM_AGREE["f32"]
+    assert f32["launches_by_rank"] == [12 * smoke.SHARD_REQUESTS] * 2
+    assert f32["small_launches_by_rank"] == [12, 12]
+
+
 @pytest.mark.parametrize("compute,bars", [("float32", (1e-6, 0.99)),
                                           ("bfloat16", (1e-2, 0.95))])
 def test_exported_artifact_on_card(cuda, tmp_path, compute, bars):
