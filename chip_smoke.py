@@ -112,7 +112,16 @@
    NCCL equal to the unsharded entry bit for bit. Its frames/s
    (shard_frames_per_sec) is two ranks time-slicing one card, not a
    scaling number. No profiler runs here.
-18. AOT serving export (engine/export.py), right after the float32 and
+18. The graft entry points (hupr_tpu_torch/graft_entry.py, graft_phase):
+   entry()'s flagship forward through the kernel (12 launches a call)
+   held to the same model and weights through the plain attention, and
+   dryrun_multichip(2) on the card: two ranks sharing it over gloo run
+   the mini epoch at the flagship geometry (train steps with a padded
+   remainder, eval, checkpoint resume, sharded serving, sequence eval,
+   chunk and ADC chunk steps, ADC sequence eval) with every stage run and
+   each rank's launches counted, then the flagship shape pass at world 8
+   on meta tensors in this process.
+19. AOT serving export (engine/export.py), right after the float32 and
    the bfloat16 slices: each config's program exported on the CPU with
    the slice's weights into build/export/, loaded onto the card and
    serving the slice's requests in turns with make_e2e_infer (12 launches
@@ -122,12 +131,12 @@
    kernel, and an artifact exported on the card serves what the
    CPU-exported one serves. Artifact MB, export and load seconds,
    frames/s beside make_e2e_infer's.
-19. scripts/profile_train.py in a process of its own per mode (train and
+20. scripts/profile_train.py in a process of its own per mode (train and
    serve): the attention kernels among its attributed names, its launch
    counts, its total beside the `profile` line's busy ms (read, not held).
-20. scripts/conv_microbench.py at its defaults in float32 and bfloat16,
+21. scripts/conv_microbench.py at its defaults in float32 and bfloat16,
    its own agreement assert holding each reformulation to cuDNN's.
-21. Prints the `kernels` line (every kernel and mode), then ends with one
+22. Prints the `kernels` line (every kernel and mode), then ends with one
    JSON line {"ok": true, "device": {...}}.
 
 Exits non-zero, printing no result, without a CUDA device or without the
@@ -3763,6 +3772,113 @@ def shard_holds(torch, card: str, ranks: list, modes, spatial: int,
     return result
 
 
+# the graft entry points (hupr_tpu_torch/graft_entry.py): entry()'s timed
+# calls, the dryrun's ranks (sharing the card over gloo), and each rank's
+# launches at the flagship geometry: 3 train steps, the eval step, the
+# resumed step, one served request, the window step, the chunk and ADC
+# chunk steps and the ADC window step, 12 forward launches each, and 12
+# backward launches in each of the 6 steps
+GRAFT_CALLS, GRAFT_WORLD = 3, 2
+GRAFT_RANK_LAUNCHES = {"attention_fwd": {"f32": 12 * 10},
+                       "attention_bwd": {"f32": 12 * 6}}
+
+
+def graft_phase(torch, card: str) -> dict:
+    """The graft entry points on the card: entry()'s flagship forward
+    (default weights, N(0, 0.05)) through the kernel, GRAFT_CALLS timed
+    calls of 12 launches each, held to the same model and weights through
+    the plain attention (MODEL.attention xla) on the same inputs at
+    MAXVAL_TOL on both heatmaps, with the share of their values off the
+    sigmoid's rails beside it; then dryrun_multichip(GRAFT_WORLD) on the
+    card: every stage, none skipped, GRAFT_RANK_LAUNCHES on each rank, its
+    flagship shape pass in this process. Prints the `graft` line; returns
+    its readings."""
+    import copy
+
+    from hupr_tpu_torch import graft_entry
+    from hupr_tpu_torch.config import flagship_serving_config
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.utils.device import float32_math
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    t0 = time.perf_counter()
+    forward, (hori, vert) = graft_entry.entry()
+    cfg_x = copy.deepcopy(flagship_serving_config())
+    cfg_x.MODEL.attention = "xla"
+    plain_model = build_model(cfg_x, "cpu")
+    plain_model.load_state_dict(synthetic_state_dict(plain_model, seed=0,
+                                                     scale=0.05))
+    plain_model = plain_model.to("cuda").eval()
+
+    def plain(h, v):
+        with torch.inference_mode(), float32_math():
+            return plain_model(h, v)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        outs = [fn(hori, vert) for _ in range(GRAFT_CALLS)]
+        torch.cuda.synchronize()
+        return outs, 1e3 * (time.perf_counter() - start) / GRAFT_CALLS
+
+    forward(hori, vert)                  # warm-up: cuDNN plans, caches
+    plain(hori, vert)
+    attention.reset_launch_counts()
+    outs, ms = timed(forward)
+    by_mode = dict(attention.attention_fwd.launches_by_mode)
+    bwd = attention.attention_bwd.launches
+    refs, plain_ms = timed(plain)
+    errs = {name: max((o[i] - r[i]).abs().max().item()
+                      for o, r in zip(outs, refs))
+            for i, name in enumerate(("heatmap", "gcn_heatmap"))}
+    live = {name: ((refs[0][i] > 1e-3) & (refs[0][i] < 1 - 1e-3))
+            .float().mean().item()
+            for i, name in enumerate(("heatmap", "gcn_heatmap"))}
+    shapes = [tuple(t.shape) for t in outs[0]]
+    finite = all(bool(torch.isfinite(t).all()) for o in outs for t in o)
+    entry_s = time.perf_counter() - t0
+    del outs, refs, forward, plain_model, hori, vert
+    torch.cuda.empty_cache()
+
+    dry = graft_entry.dryrun_multichip(GRAFT_WORLD)
+    result = {"card": card, "entry_ms_per_call": ms,
+              "entry_plain_ms_per_call": plain_ms,
+              "entry_launches": by_mode, "entry_bwd_launches": bwd,
+              "entry_max_abs_err_vs_plain": errs,
+              "entry_unsaturated_share": live, "entry_shapes": shapes,
+              "entry_finite": finite, "entry_seconds": entry_s,
+              "dryrun_world": dry["world"], "dryrun_backend": dry["backend"],
+              "dryrun_skipped": dry["skipped"],
+              "dryrun_seconds": dry["seconds"],
+              "dryrun_launches_by_rank": [r["launches"]
+                                          for r in dry["ranks"]],
+              "dryrun_losses_rank0": dry["ranks"][0]["losses"],
+              "seconds": time.perf_counter() - t0}
+    print(json.dumps({"graft": result}), flush=True)
+    failed = []
+    if by_mode != {"f32": 12 * GRAFT_CALLS} or bwd != 0:
+        failed.append(f"entry launched {by_mode} forward and {bwd} backward "
+                      f"for {GRAFT_CALLS} calls")
+    if shapes != [(2, 14, 1, 64, 64), (2, 1, 14, 64, 64)] or not finite:
+        failed.append(f"entry outputs {shapes}, finite {finite}")
+    if max(errs.values()) > MAXVAL_TOL:
+        failed.append(f"entry against the plain attention {errs}")
+    if live["heatmap"] < 0.99 or live["gcn_heatmap"] < 0.3:
+        failed.append(f"entry's heatmaps on the rails: {live}, the hold "
+                      f"would be vacuous")
+    if dry["skipped"] or dry["world"] != GRAFT_WORLD:
+        failed.append(f"dryrun skipped {dry['skipped']}")
+    for r in dry["ranks"]:
+        if r["launches"] != GRAFT_RANK_LAUNCHES:
+            failed.append(f"dryrun rank {r['rank']} launched "
+                          f"{r['launches']}, expected "
+                          f"{GRAFT_RANK_LAUNCHES}")
+    if failed:
+        raise AssertionError(f"graft checks failed: {failed}")
+    return result
+
+
 # the export phase: the artifacts (144 MB each) under the gitignored
 # build/, and the fresh process's time to load and serve one request
 EXPORT_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
@@ -4095,6 +4211,7 @@ def main() -> int:
     torch.cuda.empty_cache()
     par = parallel_phase(torch, smi)
     sh = shard_main(torch, smi, sl, sl16)
+    gr = graft_phase(torch, smi)
     pt = profile_train_phase(smi, busy)
     conv_micro_phase(torch, smi)
     backward_passes(torch)
@@ -4118,6 +4235,11 @@ def main() -> int:
         out.update({f"{name}_small_rank{r}": n for r, n in
                     enumerate(result.get("small_launches_by_rank", []))})
         return out
+
+    def graft_launches(result, name):
+        """The dryrun's float32 launches of kernel `name`, by rank."""
+        return {f"dryrun_rank{r}": lc[name].get("f32", 0) for r, lc in
+                enumerate(result["dryrun_launches_by_rank"])}
 
     def b1(mode):
         return {key: 4 * sum(r[key] for r in b1_rows if r["mode"] == mode)
@@ -4156,7 +4278,9 @@ def main() -> int:
                                 par["runner"]["launches_by_rank"],
                                 "attention_fwd"),
                       **shard_launches(sh["f32"], "shard"),
-                      **shard_launches(sh["seq_eval"], "shard_seq_eval")},
+                      **shard_launches(sh["seq_eval"], "shard_seq_eval"),
+                      "graft_entry": gr["entry_launches"]["f32"],
+                      **graft_launches(gr, "attention_fwd")},
                      rows, 4, per_request, stream_B1=b1("f32"),
                      stream_traced=st["f32"][
                          "traced_attention_fwd_kernels"],
@@ -4181,7 +4305,9 @@ def main() -> int:
                                 "attention_bwd"),
                       **by_rank("parallel_runner",
                                 par["runner"]["launches_by_rank"],
-                                "attention_bwd")},
+                                "attention_bwd"),
+                      "graft_entry": gr["entry_bwd_launches"],
+                      **graft_launches(gr, "attention_bwd")},
                      bwd_rows, 4, per_step,
                      body="attention_bwd_dq_tf32, attention_bwd_dkdm_tf32 "
                           "(3xTF32 on mma.sync, csrc/tf32.cuh)",

@@ -58,6 +58,7 @@ ops and keep the launch counts.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 
@@ -179,10 +180,12 @@ def attention_unfolded_plain(k, q, m, bf16_ops: bool = False):
     return torch.einsum("bic,bij->bjc", m, a).to(dtype)
 
 
-def _check(op, tensors, shape, dtypes=KERNEL_DTYPES):
-    """Raise unless every tensor is a contiguous CUDA tensor of the (B, N, C)
+def _check(op, tensors, shape, dtypes=KERNEL_DTYPES,
+           device_types=("cuda",)):
+    """Raise unless every tensor is a contiguous tensor of the (B, N, C)
     `shape` (a (B, N) float32 shape for names starting with 'lse'), all of
-    one dtype in `dtypes`, with C one the kernels are built for."""
+    one dtype in `dtypes`, with C one the kernels are built for, on a
+    device of a type in `device_types` (the card's)."""
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"{op} inputs on different devices: {devices}")
@@ -204,7 +207,7 @@ def _check(op, tensors, shape, dtypes=KERNEL_DTYPES):
         raise ValueError(f"{op} is built for C in {KERNEL_CHANNELS}; got "
                          f"C={shape[2]}")
     device = devices.pop()
-    if device.type != "cuda":
+    if device.type not in device_types:
         raise ValueError(f"{op} runs on CUDA or CPU, not {device}")
 
 
@@ -276,11 +279,31 @@ def _op(name: str, schema: str, cpu, cuda, fake):
     return op
 
 
+_meta_as_card = False
+
+
+@contextlib.contextmanager
+def meta_stands_for_card():
+    """Within it, the ops take meta tensors as the card's: each is held to
+    what the CUDA kernel takes (shapes, dtypes, channels) and answers with
+    its output's shape, launching nothing. The flagship shape pass
+    (graft_entry.flagship_shapes) runs the programs on meta tensors so.
+    Outside it a meta tensor raises, as on any device without a kernel."""
+    global _meta_as_card
+    saved, _meta_as_card = _meta_as_card, True
+    try:
+        yield
+    finally:
+        _meta_as_card = saved
+
+
 def _fake_check(op, tensors, shape, dtypes=KERNEL_DTYPES):
     """The fake kernels' check: off the CPU, what _check holds the CUDA
-    kernel to (a fake tensor carries the device it stands for)."""
+    kernel to (a fake tensor carries the device it stands for; a meta
+    tensor stands for the card's within meta_stands_for_card)."""
     if next(iter(tensors.values())).device.type != "cpu":
-        _check(op, tensors, shape, dtypes)
+        _check(op, tensors, shape, dtypes, device_types=(
+            ("cuda", "meta") if _meta_as_card else ("cuda",)))
 
 
 def _fwd_cuda(k, q, m, bf16_ops: bool, with_lse: bool):

@@ -707,3 +707,35 @@ def test_exported_artifact_on_card(cuda, tmp_path, compute, bars):
     assert (maxv - live[1]).abs().max().item() <= tol
     assert (pred == live[0]).all(dim=-1).float().mean().item() >= agree
     assert maxv.std().item() > 1e-3
+
+
+def test_entry_on_card(cuda):
+    """graft_entry.entry() on the card: the flagship forward (batch 2,
+    default N(0, 0.05) weights) through the kernel, 12 forward launches
+    and no backward a call, both heatmaps within 1e-4 of the same model
+    and weights through the plain attention on the same inputs."""
+    import copy
+
+    from hupr_tpu_torch import graft_entry
+    from hupr_tpu_torch.config import flagship_serving_config
+    from hupr_tpu_torch.models.hupr import build_model
+    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    forward, (hori, vert) = graft_entry.entry()
+    assert hori.device.type == vert.device.type == "cuda"
+    attention.reset_launch_counts()
+    got = forward(hori, vert)
+    torch.cuda.synchronize()
+    assert attention.attention_fwd.launches_by_mode == {"f32": 12}
+    assert attention.attention_bwd.launches == 0
+    cfg = copy.deepcopy(flagship_serving_config())
+    cfg.MODEL.attention = "xla"
+    plain = build_model(cfg, "cpu")
+    plain.load_state_dict(synthetic_state_dict(plain, seed=0, scale=0.05))
+    plain = plain.to("cuda").eval()
+    with torch.inference_mode():
+        want = plain(hori, vert)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and bool(torch.isfinite(g).all())
+        assert (g - w).abs().max().item() <= 1e-4

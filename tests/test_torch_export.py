@@ -322,7 +322,7 @@ import sys
 import numpy as np
 import torch
 from hupr_tpu_torch.engine.export import load_artifact
-torch.set_num_threads(2)
+torch.set_num_threads(int(sys.argv[4]))
 args = np.load(sys.argv[2])
 pred, maxv = load_artifact(sys.argv[1], device="cpu")(
     *(args[k] for k in ("hr", "hi", "vr", "vi")))
@@ -337,7 +337,10 @@ print("LOADED", bad)
 def test_fresh_process_serves_without_model_code(artifact, served,
                                                  tmp_path):
     """A new process with only engine.export imported loads the file and
-    serves it: no model code, no pipeline, no JAX in sys.modules."""
+    serves it: no model code, no pipeline, no JAX in sys.modules. It runs
+    at this process's thread count, whatever the modules collected before
+    set: the CPU kernels split their float sums by thread, so two counts
+    round differently."""
     model, state, blob = artifact
     path = str(tmp_path / "serving.pt2")
     export.save_artifact(path, blob)
@@ -346,8 +349,9 @@ def test_fresh_process_serves_without_model_code(artifact, served,
                                              args)))
     out = subprocess.run(
         [sys.executable, "-c", _FRESH, path, str(tmp_path / "in.npz"),
-         str(tmp_path / "out.npz")], cwd=REPO, capture_output=True,
-        text=True, timeout=240, env={**os.environ, "PYTHONPATH": REPO})
+         str(tmp_path / "out.npz"), str(torch.get_num_threads())],
+        cwd=REPO, capture_output=True, text=True, timeout=240,
+        env={**os.environ, "PYTHONPATH": REPO})
     assert out.returncode == 0, out.stderr
     assert "LOADED []" in out.stdout, out.stdout
     got = np.load(tmp_path / "out.npz")

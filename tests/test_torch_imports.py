@@ -30,14 +30,14 @@ BLOCKED = ("jax", "flax", "optax", "hupr_tpu", "yaml", "tqdm", "cv2", "PIL",
 # raw-ADC and remat scripts' modules, the preprocessing CLI, the live
 # capture, live serving and the parity audit, data parallelism, and the
 # serving export, the profiler helpers and the convolution microbenchmark,
-# and the frame-axis sharding of one request
+# the frame-axis sharding of one request, and the graft entry points
 NEW = ("data.adc", "engine.chunk_train", "engine.streaming",
        "scripts.remat_memory", "scripts.batch_sweep",
        "preprocessing.process_iwr1843", "data.capture", "scripts.live_serve",
        "scripts.parity_audit", "parallel", "parallel.mesh",
        "parallel.multihost", "scripts.dp_scaling", "engine.export",
        "scripts.export_serving", "utils.profiling", "scripts.profile_train",
-       "scripts.conv_microbench", "parallel.halo")
+       "scripts.conv_microbench", "parallel.halo", "graft_entry")
 
 _IMPORT_ALL = """
 import importlib, pkgutil, sys
