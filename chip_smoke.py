@@ -858,13 +858,19 @@ def card_trace(torch, activities):
         time.sleep(TRACE_PAD_S)
 
 
+def on_card(torch, e) -> bool:
+    """A profiler event of the card's own work: not a host event, and not
+    the card's mirror of a record_function range (the program's spans)."""
+    return e.device_type == torch.autograd.DeviceType.CUDA \
+        and not getattr(e, "is_user_annotation", False)
+
+
 def kernel_times(torch, prof):
     """(kernel name, device ms, calls) of each CUDA kernel a torch.profiler
     run saw, the longest first."""
     kernels = [(e.key, e.self_device_time_total / 1e3, e.count)
                for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0]
+               if on_card(torch, e) and e.self_device_time_total > 0]
     return sorted(kernels, key=lambda x: -x[1])
 
 
@@ -875,7 +881,7 @@ def device_busy_ms(torch, prof) -> float:
     busy_us, reach = 0.0, float("-inf")
     for start, end in sorted(
             (e.time_range.start, e.time_range.end) for e in prof.events()
-            if e.device_type == torch.autograd.DeviceType.CUDA):
+            if on_card(torch, e)):
         if end > reach:
             busy_us += end - max(start, reach)
             reach = end
@@ -1710,15 +1716,15 @@ def frame_launches(torch, step) -> dict:
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = prof.events()
-    cpu, cuda = torch.autograd.DeviceType.CPU, torch.autograd.DeviceType.CUDA
+    cpu = torch.autograd.DeviceType.CPU
     return {"host_launch_calls_per_frame": sum(
                 1 for e in events if "Launch" in e.name
                 and e.device_type == cpu),
             "device_kernels_per_frame": sum(
-                1 for e in events if e.device_type == cuda
+                1 for e in events if on_card(torch, e)
                 and not e.name.startswith(("Memcpy", "Memset"))),
             "attention_fwd_kernels": sum(
-                1 for e in events if e.device_type == cuda
+                1 for e in events if on_card(torch, e)
                 and any(n in e.name for n in ATTN_FWD_TRACE)),
             "wall_ms": wall_ms, "device_busy_ms": device_busy_ms(torch, prof)}
 

@@ -18,6 +18,7 @@ from torch import nn
 from hupr_tpu_torch.ops.dsp import RadarParams, radar_cube_frames
 from hupr_tpu_torch.ops.heatmap import get_max_preds
 from hupr_tpu_torch.ops.normalize import normalize_radar_window
+from hupr_tpu_torch.utils import profiling
 from hupr_tpu_torch.utils.device import float32_math, resolve_device
 
 
@@ -89,8 +90,10 @@ class ServingProgram(nn.Module):
     def chirp_maps(self, hori_re, hori_im, vert_re, vert_im):
         """Raw I/Q frames -> the per-frame encoded maps (F, R, A, C) per
         view: the DSP, the normalized chirp input and the MNet encode."""
-        ra, re = self.model.chirp_maps(self._cube_input(hori_re, hori_im),
-                                       self._cube_input(vert_re, vert_im))
+        with profiling.annotate("hupr.dsp"):
+            hori = self._cube_input(hori_re, hori_im)
+            vert = self._cube_input(vert_re, vert_im)
+        ra, re = self.model.chirp_maps(hori, vert)
         return ra[:, 0], re[:, 0]
 
     def keypoints(self, ra, re):
@@ -98,13 +101,23 @@ class ServingProgram(nn.Module):
         (pred2d (B, K, 2), maxvals (B, K, 1))."""
         _, gcn = self.model.pose_from_maps(ra, re)
         k, h = gcn.shape[2], gcn.shape[3]
-        return get_max_preds(gcn.reshape(-1, k, h, h))
+        with profiling.annotate("hupr.decode"):
+            return get_max_preds(gcn.reshape(-1, k, h, h))
 
     def forward(self, hori_re, hori_im, vert_re, vert_im):
         ra, re = self.chirp_maps(hori_re, hori_im, vert_re, vert_im)
         return self.keypoints(
             window_stack_sequences(ra, self.group, self.duration),
             window_stack_sequences(re, self.group, self.duration))
+
+
+def _to_card(planes, device) -> list:
+    """The request's planes as tensors on `device`, each copy done before
+    it returns (a pageable host copy blocks the host), inside the span
+    `hupr.serve.h2d`; counts the bytes that came from host memory."""
+    with profiling.annotate("hupr.serve.h2d"):
+        profiling.count_h2d(*planes)
+        return [torch.as_tensor(x, device=device) for x in planes]
 
 
 def _sharded_serving(program: ServingProgram, mesh):
@@ -119,9 +132,9 @@ def _sharded_serving(program: ServingProgram, mesh):
     def run(hori_re, hori_im, vert_re, vert_im):
         f = hori_re.shape[0]
         lo, hi = frame_block(f, mesh)
-        ra, re = program.chirp_maps(*(
-            torch.as_tensor(x[lo:hi], device=mesh.device)
-            for x in (hori_re, hori_im, vert_re, vert_im)))
+        ra, re = program.chirp_maps(*_to_card(
+            [x[lo:hi] for x in (hori_re, hori_im, vert_re, vert_im)],
+            mesh.device))
         pred, maxv = program.keypoints(*(
             window_stack_sharded(m, mesh, program.group, program.duration, f)
             for m in (ra, re)))
@@ -158,11 +171,12 @@ def make_e2e_infer(model, state=None, params: RadarParams = RadarParams(),
         body = _sharded_serving(program, mesh)
     else:
         def body(*planes):
-            return program(*(torch.as_tensor(x, device=dev) for x in planes))
+            return program(*_to_card(planes, dev))
 
     @torch.inference_mode()
     @float32_math()
     def run(hori_re, hori_im, vert_re, vert_im):
-        return body(hori_re, hori_im, vert_re, vert_im)
+        with profiling.annotate("hupr.serve.request"):
+            return body(hori_re, hori_im, vert_re, vert_im)
 
     return run

@@ -33,6 +33,7 @@ from hupr_tpu_torch.models.blocks import synced_batch_stats
 from hupr_tpu_torch.ops.heatmap import (bce_loss, generate_target_batch,
                                         get_max_preds)
 from hupr_tpu_torch.ops.normalize import normalize_radar_window
+from hupr_tpu_torch.utils import profiling
 from hupr_tpu_torch.utils.device import float32_math
 
 
@@ -60,7 +61,11 @@ def make_optimizer(cfg, model: nn.Module) -> torch.optim.Optimizer:
 
 def _inputs(batch, device):
     """The batch dict on `device`: normalized float32 windows, joints, and
-    the (B,) row mask or None. Windows may arrive in any float dtype."""
+    the (B,) row mask or None. Windows may arrive in any float dtype.
+    Counts the bytes that came from host memory."""
+    profiling.count_h2d(batch["hori"], batch["vert"], batch["jointsGroup"],
+                        batch.get("mask"))
+
     def normalized(x):
         return normalize_radar_window(
             torch.as_tensor(x, device=device).to(torch.float32))
@@ -106,6 +111,7 @@ def _real_rows(mask: torch.Tensor) -> torch.Tensor:
 def _global_count(mask: torch.Tensor) -> torch.Tensor:
     """The number of real rows (mask 1) over all ranks, float32 0-d."""
     count = mask.to(torch.float32).sum()
+    profiling.count("hupr.collectives")
     dist.all_reduce(count)
     return count
 
@@ -121,6 +127,7 @@ def _reduce_gradients(model: nn.Module, metrics) -> list:
              for p in params]
     flat = torch.cat([g.reshape(-1) for g in grads]
                      + [m.detach().reshape(1) for m in metrics])
+    profiling.count("hupr.collectives")
     dist.all_reduce(flat)
     offset = 0
     for p in params:
@@ -163,36 +170,45 @@ def make_train_step(model: nn.Module, tx: torch.optim.Optimizer,
     dp = _data_parallel(mesh)
 
     def train_step(state: TrainState, batch, lr, alpha):
+        with profiling.annotate("hupr.train.step"):
+            return _step(state, batch, lr, alpha)
+
+    def _step(state: TrainState, batch, lr, alpha):
         if state.model is not model or state.optimizer is not tx:
             raise ValueError("state holds another model or optimizer than "
                              "this train step was made for")
         device = next(model.parameters()).device
-        hori, vert, joints, mask = _inputs(batch, device)
-        count = None
-        if dp:
-            if mask is None:
-                mask = torch.ones(hori.shape[0], device=device)
-            count = _global_count(mask)
-        elif mask is not None:
-            rows = _real_rows(mask)
-            hori, vert, joints = hori[rows], vert[rows], joints[rows]
-            mask = None
+        with profiling.annotate("hupr.train.inputs"):
+            hori, vert, joints, mask = _inputs(batch, device)
+            count = None
+            if dp:
+                if mask is None:
+                    mask = torch.ones(hori.shape[0], device=device)
+                count = _global_count(mask)
+            elif mask is not None:
+                rows = _real_rows(mask)
+                hori, vert, joints = hori[rows], vert[rows], joints[rows]
+                mask = None
         for group in tx.param_groups:
             group["lr"] = lr
         was_training = model.training
         model.train()
         try:
             with float32_math():
-                with synced_batch_stats(mask):
+                with profiling.annotate("hupr.train.forward"), \
+                        synced_batch_stats(mask):
                     loss1, loss2, _, _ = _losses(model, hori, vert, joints,
                                                  mask, geometry, count)
-                loss = _combine(loss1, loss2, alpha, loss_decay)
-                tx.zero_grad(set_to_none=True)
-                loss.backward()
+                    loss = _combine(loss1, loss2, alpha, loss_decay)
+                with profiling.annotate("hupr.train.backward"):
+                    tx.zero_grad(set_to_none=True)
+                    loss.backward()
                 if dp:
-                    loss1, loss2, loss = _reduce_gradients(
-                        model, (loss1, loss2, loss))
-                tx.step()
+                    with profiling.annotate("hupr.train.grad_sum"):
+                        loss1, loss2, loss = _reduce_gradients(
+                            model, (loss1, loss2, loss))
+                with profiling.annotate("hupr.train.optimizer"):
+                    tx.step()
         finally:
             model.train(was_training)
         state.step += 1

@@ -38,6 +38,7 @@ import torch
 from hupr_tpu_torch.engine.pipeline import cube_chirp_input
 from hupr_tpu_torch.ops.dsp import RadarParams, radar_cube_frames
 from hupr_tpu_torch.ops.heatmap import get_max_preds
+from hupr_tpu_torch.utils import profiling
 from hupr_tpu_torch.utils.device import float32_math, resolve_device
 
 
@@ -146,10 +147,19 @@ class StreamingPoseEstimator:
         if key not in self._graphs:
             self._graphs[key] = self._capture(planes)
         g = self._graphs[key]
-        for buf, p in zip(g["inputs"], planes):
-            buf.copy_(p)
-        g["graph"].replay()
+        with profiling.annotate("hupr.stream.h2d"):
+            profiling.count_h2d(*planes)
+            for buf, p in zip(g["inputs"], planes):
+                buf.copy_(p)
+        with profiling.annotate("hupr.stream.replay"):
+            g["graph"].replay()
         return g["out"]
+
+    def _to_device(self, planes) -> list:
+        """The eager path's copy of the frame's planes to the device."""
+        with profiling.annotate("hupr.stream.h2d"):
+            profiling.count_h2d(*planes)
+            return [p.to(self.device) for p in planes]
 
     # ------------- the public interface -------------
 
@@ -174,22 +184,26 @@ class StreamingPoseEstimator:
         G/2 - 1 frames back. With fetch=False the two are tensors on the
         card, read when the caller reads them (a graph step's output is
         copied first, since the next replay overwrites it)."""
+        with profiling.annotate("hupr.stream.frame"):
+            return self._process(hori_frame, vert_frame, fetch)
+
+    def _process(self, hori_frame, vert_frame, fetch):
         planes = self._split(hori_frame) + self._split(vert_frame)
         with torch.inference_mode(), float32_math():
             if not self._started:
-                packed = self._first_step(
-                    *(p.to(self.device) for p in planes))
+                packed = self._first_step(*self._to_device(planes))
                 self._started = True
             elif self.cuda_graph:
                 packed = self._graph_step(planes)
                 if not fetch:
                     packed = packed.clone()
             else:
-                packed = self._step(*(p.to(self.device) for p in planes))
+                packed = self._step(*self._to_device(planes))
         self._count += 1
         if not fetch:
             return packed[:, :2], packed[:, 2:]
-        arr = packed.cpu().numpy()              # one host copy per frame
+        with profiling.annotate("hupr.stream.fetch"):
+            arr = packed.cpu().numpy()          # one host copy per frame
         return arr[:, :2], arr[:, 2:]
 
     def flush(self):

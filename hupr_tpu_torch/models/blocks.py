@@ -51,6 +51,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from hupr_tpu_torch.ops.resize import scale_by_factor
+from hupr_tpu_torch.utils import profiling
 
 
 class _CastConv:
@@ -138,6 +139,7 @@ def synced_moments(x: torch.Tensor, mask: torch.Tensor) -> tuple:
           * w).sum(axes)
     buf = xf.new_zeros((world, 2 * c + 1))
     buf[rank] = torch.cat([n.reshape(1), mean, m2])
+    profiling.count("hupr.collectives")
     dist.all_reduce(buf)
     counts, means, m2s = buf[:, :1], buf[:, 1:c + 1], buf[:, c + 1:]
     total = counts.sum()
@@ -174,6 +176,7 @@ class _SyncedBatchNorm(torch.autograd.Function):
         sum_dy = dyf.sum(axes)
         sum_dy_xhat = (dyf * xhat).sum(axes)
         both = torch.cat([sum_dy, sum_dy_xhat])
+        profiling.count("hupr.collectives")
         dist.all_reduce(both)
         g_dy, g_dy_xhat = both.chunk(2)
         w = mask.to(torch.float32).reshape((-1,) + (1,) * (x.dim() - 1))

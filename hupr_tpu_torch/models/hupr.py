@@ -44,6 +44,7 @@ from hupr_tpu_torch.models.blocks import recomputing
 from hupr_tpu_torch.models.encoder3d import Encoder3D
 from hupr_tpu_torch.models.mnet import MNet
 from hupr_tpu_torch.models.mscsa import MSCSADecoder
+from hupr_tpu_torch.utils import profiling
 from hupr_tpu_torch.utils.device import resolve_device
 
 
@@ -76,20 +77,24 @@ class HuPRNet(nn.Module):
         """(B, G, C, 2, R, A, E) x2 -> per-frame maps (B, G, R, A, F) x2."""
         b, g = vrdae_hori.shape[:2]
         out = []
-        for net, x in ((self.RAchirpNet, vrdae_hori),
-                       (self.REchirpNet, vrdae_vert)):
-            y = net(self._chirp_view(x.mean(dim=6)))     # (B*G, F, R, A)
-            out.append(y.reshape(b, g, *y.shape[1:]).permute(0, 1, 3, 4, 2))
+        with profiling.annotate("hupr.mnet"):
+            for net, x in ((self.RAchirpNet, vrdae_hori),
+                           (self.REchirpNet, vrdae_vert)):
+                y = net(self._chirp_view(x.mean(dim=6)))  # (B*G, F, R, A)
+                out.append(y.reshape(b, g, *y.shape[1:]).permute(
+                    0, 1, 3, 4, 2))
         return tuple(out)
 
     def _encode(self, encoder, x):
         """encoder(x), checkpointed under `remat` when autograd records a
-        train-mode forward."""
-        if self.remat and self.training and torch.is_grad_enabled():
-            return checkpoint(encoder, x, use_reentrant=False,
-                              context_fn=_recompute_context,
-                              preserve_rng_state=False)
-        return encoder(x)
+        train-mode forward; the span `hupr.encoder3d` times it on the card
+        too."""
+        with profiling.annotate("hupr.encoder3d", device=x.is_cuda):
+            if self.remat and self.training and torch.is_grad_enabled():
+                return checkpoint(encoder, x, use_reentrant=False,
+                                  context_fn=_recompute_context,
+                                  preserve_rng_state=False)
+            return encoder(x)
 
     def pose_from_maps(self, ra, re):
         """(B, G, R, A, F) chirp maps x2 -> (heatmap, gcn_heatmap). The

@@ -25,6 +25,7 @@ from torch import nn
 from hupr_tpu_torch.models.blocks import BasicBlock, Conv2d, Rescale
 from hupr_tpu_torch.models.prgcn import PRGCN
 from hupr_tpu_torch.ops.attention import spatial_attention
+from hupr_tpu_torch.utils import profiling
 
 PROJECTIONS = ("phi_cross_hori", "theta_cross_hori", "phi_cross_vert",
                "theta_cross_vert", "phi_self_hori", "theta_self_hori",
@@ -118,10 +119,14 @@ class MSCSADecoder(nn.Module):
     def forward(self, ra_l1, ra_l2, ra_l3, re_l1, re_l2, re_l3):
         """Encoder maps at H, H/2, H/4 -> (logits, gcn heatmap), each
         (B, K, H, W)."""
-        maps = torch.cat(self._attend_scale(0, ra_l3, re_l3), dim=1)
-        maps = self.decoderLayer3(maps)
-        maps = torch.cat((maps,) + self._attend_scale(1, ra_l2, re_l2), dim=1)
-        maps = self.decoderLayer2(maps)
-        maps = torch.cat((maps,) + self._attend_scale(2, ra_l1, re_l1), dim=1)
-        logits = self.decoderLayer1(maps)
-        return logits, self.gcn(logits)
+        with profiling.annotate("hupr.decoder"):
+            maps = torch.cat(self._attend_scale(0, ra_l3, re_l3), dim=1)
+            maps = self.decoderLayer3(maps)
+            maps = torch.cat((maps,) + self._attend_scale(1, ra_l2, re_l2),
+                             dim=1)
+            maps = self.decoderLayer2(maps)
+            maps = torch.cat((maps,) + self._attend_scale(2, ra_l1, re_l1),
+                             dim=1)
+            logits = self.decoderLayer1(maps)
+        with profiling.annotate("hupr.prgcn"):
+            return logits, self.gcn(logits)

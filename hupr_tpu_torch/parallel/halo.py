@@ -25,6 +25,7 @@ import torch.distributed as dist
 
 from hupr_tpu_torch.engine.pipeline import window_stack_sequences
 from hupr_tpu_torch.parallel.mesh import Mesh
+from hupr_tpu_torch.utils import profiling
 
 
 def frame_block(total_frames: int, mesh: Mesh) -> tuple:
@@ -62,6 +63,7 @@ def halo_exchange(local: torch.Tensor, mesh: Mesh, left: int,
         return local[torch.as_tensor(source, device=local.device)]
     edges = torch.cat([local[:head], local[s - tail:]]).contiguous()
     gathered = [torch.empty_like(edges) for _ in range(mesh.world)]
+    profiling.count("hupr.collectives")
     dist.all_gather(gathered, edges)
     return torch.cat([local] + gathered)[
         torch.as_tensor(source, device=local.device)]

@@ -22,6 +22,7 @@ import torch
 import torch.distributed as dist
 
 from hupr_tpu_torch.parallel import multihost
+from hupr_tpu_torch.utils import profiling
 from hupr_tpu_torch.utils.device import resolve_device
 
 
@@ -120,12 +121,14 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x):
         y = x.clone()
+        profiling.count("hupr.collectives")
         dist.all_reduce(y)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone()
+        profiling.count("hupr.collectives")
         dist.all_reduce(g)
         return g
 

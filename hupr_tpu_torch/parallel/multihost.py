@@ -39,6 +39,8 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from hupr_tpu_torch.utils import profiling
+
 _SYNC_TIMEOUT_S = 600
 _seq: dict = {}
 
@@ -156,6 +158,7 @@ def replicate_tree(tensors, mesh) -> None:
         group = by_dtype[dtype]
         flat = torch.cat([t.detach().reshape(-1).to(mesh.device)
                           for t in group])
+        profiling.count("hupr.collectives")
         dist.broadcast(flat, src=0)
         offset = 0
         with torch.no_grad():
@@ -232,6 +235,7 @@ def warmup_device_collectives(mesh) -> None:
         return
     barrier("collective_warmup")
     x = torch.ones(1, device=mesh.device)
+    profiling.count("hupr.collectives")
     dist.all_reduce(x)
     if x.item() != process_count():
         raise RuntimeError(f"collective warm-up summed {x.item()} over "

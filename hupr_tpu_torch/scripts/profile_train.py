@@ -59,6 +59,7 @@ def attribute(prof, device: torch.device) -> dict:
     for e in prof.key_averages():
         if device.type == "cuda":
             if e.device_type != torch.autograd.DeviceType.CUDA or \
+                    getattr(e, "is_user_annotation", False) or \
                     e.key.startswith(("Memcpy", "Memset")):
                 continue
             us = e.self_device_time_total

@@ -739,3 +739,112 @@ def test_entry_on_card(cuda):
     for g, w in zip(got, want):
         assert g.shape == w.shape and bool(torch.isfinite(g).all())
         assert (g - w).abs().max().item() <= 1e-4
+
+
+def _small_request():
+    """make_e2e_infer at the kernels' widths (numFilters 32) on 32x32 maps
+    from a reduced capture, and an 8-frame request of int16 planes on the
+    host."""
+    import numpy as np
+
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops.dsp import RadarParams
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    rp = RadarParams(num_adc_samples=128, num_chirp=48, idx_proc_chirp=16,
+                     num_group_chirp=2)
+    model = HuPRNet(num_filters=32, heatmap_size=32, attn_impl="pallas")
+    state = synthetic_state_dict(model, seed=0, scale=0.03)
+    rng = np.random.default_rng(2)
+    planes = [rng.integers(-300, 300, (8, 4, 48, 128)).astype(np.int16)
+              for _ in range(4)]
+    return make_e2e_infer(model, state, rp, duration=8), planes
+
+
+def test_encoder3d_span_times_its_work_on_the_card(cuda):
+    """Under the profiler, the span `hupr.encoder3d` reads the card's time
+    of each encoder call from its CUDA events: two calls a request, a
+    positive device time inside the request's host span."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hupr_tpu_torch.utils import profiling
+
+    run, planes = _small_request()
+    run(*planes)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        run(*planes)
+        torch.cuda.synchronize()
+    spans = profiling.table()["spans"]
+    profiling.reset()
+    enc, request = spans["hupr.encoder3d"], spans["hupr.serve.request"]
+    assert enc["count"] == 2
+    assert 0 < enc["device_s"] < request["host_s"]
+    assert all("device_s" not in s for n, s in spans.items()
+               if n != "hupr.encoder3d")
+
+
+def test_stream_graph_capture_under_a_profiler(cuda):
+    """The stream's CUDA graph captured while a profiler records (the
+    device spans inside the capture record no event): the same poses as
+    an estimator captured with no profiler, and the frame's spans."""
+    import numpy as np
+    from torch.profiler import ProfilerActivity, profile
+
+    from hupr_tpu_torch.engine.streaming import StreamingPoseEstimator
+    from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops.dsp import RadarParams
+    from hupr_tpu_torch.utils import profiling
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    rp = RadarParams(num_adc_samples=128, num_chirp=48, idx_proc_chirp=16,
+                     num_group_chirp=2)
+    model = HuPRNet(num_filters=32, heatmap_size=32, attn_impl="pallas",
+                    compute_dtype=torch.bfloat16)
+    state = synthetic_state_dict(model, seed=0, scale=0.03)
+    rng = np.random.default_rng(3)
+    frames = [rng.integers(-300, 300, (4, 4, 48, 128)).astype(np.int16)
+              for _ in range(4)]
+
+    def push(est, t):
+        return est.process_frame((frames[0][t], frames[1][t]),
+                                 (frames[2][t], frames[3][t]))
+
+    plain = StreamingPoseEstimator(model, state, rp)
+    want = [push(plain, t) for t in range(4)]
+    traced = StreamingPoseEstimator(model, state, rp)
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        got = [push(traced, t) for t in range(4)]
+        torch.cuda.synchronize()
+    spans = profiling.table()["spans"]
+    profiling.reset()
+    assert traced._graphs
+    for (p, m), (pw, mw) in zip(got, want):
+        np.testing.assert_array_equal(p, pw)
+        np.testing.assert_allclose(m, mw, rtol=0, atol=1e-5)
+    assert spans["hupr.stream.frame"]["count"] == 4
+    assert spans["hupr.stream.replay"]["count"] == 3
+    assert spans["hupr.stream.fetch"]["count"] == 4
+
+
+def test_spans_stay_off_the_cards_kernels(cuda, monkeypatch):
+    """gpubench.trace.traced over a served request: with the program's
+    spans on, no `hupr.*` name among the card's kernels, and the host's
+    launch calls those of the same request with the spans taken out."""
+    from gpubench import trace
+
+    from hupr_tpu_torch.utils import profiling
+
+    run, planes = _small_request()
+    run(*planes)
+    on = trace.traced(lambda: run(*planes), 1, 8)
+    profiling.reset()
+    monkeypatch.setattr(profiling, "annotate",
+                        lambda name, device=False: profiling._NO_SPAN)
+    off = trace.traced(lambda: run(*planes), 1, 8)
+    assert on.kernels and not [k for k in on.kernels
+                               if k[0].startswith("hupr.")]
+    assert not [k for k, _ in on.device_ops if k.startswith("hupr.")]
+    assert on.host_launches == off.host_launches > 0

@@ -1,15 +1,14 @@
-"""The port's profiler helpers (hupr_tpu_torch/utils/profiling.py) against
-hupr_tpu's, and scripts/profile_train.py on the CPU at numFilters 2."""
+"""The port's profiler exporter (hupr_tpu_torch/utils/profiling.py), and
+scripts/profile_train.py on the CPU at numFilters 2. The program's spans
+and counters: tests/test_torch_tracing.py."""
 
 import json
 import os
 import re
-import time
 
 import pytest
 import torch
 
-from hupr_tpu.utils import profiling as jax_profiling
 from hupr_tpu_torch.scripts import profile_train
 from hupr_tpu_torch.utils import profiling
 
@@ -19,35 +18,21 @@ torch.set_num_threads(2)
 LINE = re.compile(r" *\d+\.\d{3} ms  [ \d]{2}\d\.\d%  \S.*")
 
 
-@pytest.mark.parametrize("durations", [[], [0.5], [0.1, 0.3, 0.2, 0.9]])
-def test_step_timer_equals_jax(monkeypatch, durations):
-    """Both timers read the same clock (time.perf_counter, patched to a
-    script of instants): the same summary."""
-    def summary(timer_cls):
-        instants = iter([t for d in durations for t in (10.0, 10.0 + d)])
-        monkeypatch.setattr(time, "perf_counter", lambda: next(instants))
-        timer = timer_cls()
-        for _ in durations:
-            with timer.step():
-                pass
-        return timer.summary()
-
-    want = summary(jax_profiling.StepTimer)
-    got = summary(profiling.StepTimer)
-    assert got == want
-    assert bool(got) == bool(durations)
-
-
 def test_trace_writes_a_chrome_trace_with_the_annotation(tmp_path):
     with profiling.trace(str(tmp_path / "prof")):
         with profiling.annotate("hupr_region"):
             torch.ones(64, 64) @ torch.ones(64, 64)
-    files = os.listdir(tmp_path / "prof")
-    assert len(files) == 1 and files[0].endswith(".json")
-    with open(tmp_path / "prof" / files[0]) as f:
+    files = sorted(os.listdir(tmp_path / "prof"))
+    assert len(files) == 2 and files[1].startswith("trace_") \
+        and files[1].endswith(".json")
+    with open(tmp_path / "prof" / files[1]) as f:
         events = json.load(f)["traceEvents"]
     names = {e.get("name") for e in events}
     assert "hupr_region" in names and "aten::mm" in names
+    with open(tmp_path / "prof" / files[0]) as f:
+        table = json.load(f)["table"]
+    assert files[0] == "spans_" + files[1][len("trace_"):]
+    assert table["spans"]["hupr_region"]["count"] == 1
 
 
 @pytest.mark.parametrize("name,want", [
