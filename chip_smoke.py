@@ -13,13 +13,22 @@
    path gives it (the forward at B=32 as served, the backward and the
    forward's log-sum-exp at B=20 as trained, the forward at B=1 as
    streamed, in modes f32 and bf16), and times kernel, plain version and
-   the library call that computes the same function.
+   the library call that computes the same function. The float32 conv
+   kernel (conv3d_fprop) at each Encoder3D shape at B=32 and B=1, within
+   ops/conv.REL_TOL of F.conv3d in float32 (TF32 off) and in float64; its
+   plain version is the library's call, F.conv3d (cuDNN).
 4. Serves requests of 32 raw int16 ADC frames per radar view through
    make_e2e_infer at the flagship width (config/mscsa_prgcn_tpu.yaml:
    numFilters 32, 64x64 maps, 8-frame windows, MODEL.attention pallas),
-   with seeded synthetic weights; checks the launch counts, the output
-   shapes and finiteness, and the agreement with the same requests served
-   through the plain attention (MODEL.attention xla).
+   with seeded synthetic weights; checks the launch counts (12 attention
+   and 32 conv launches a float32 request), the output shapes and
+   finiteness, and the agreement with the same requests served through
+   the plain attention (MODEL.attention xla) and cuDNN's convolutions
+   (plain_convs). The stream, export and shard phases and the train steps
+   count the conv kernel's launches too: 32 to each 12 attention launches
+   of a float32 forward at B >= 8 (8 at the stream's B = 1, where the
+   deeper convs' grids stay on cuDNN: conv.MIN_BLOCKS), none in bfloat16
+   or where a gradient is needed.
 5. Trains the flagship recipe (batch 20, Adam at lr 1e-4) for a few steps
    of bench.py's synthetic batch, driven as Runner.train drives its train
    step, through the kernels and, from the same weights, through the plain
@@ -157,7 +166,8 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 # hupr_tpu_torch/csrc/*.cu
-KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_unfolded")
+KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_unfolded",
+           "conv3d_fprop")
 REQUESTS = 8            # timed requests of the serving slice
 FRAMES = 32             # raw frames per request and radar view (bench.py)
 ATTN_BATCH = 32         # windows per request = the attention's batch
@@ -207,6 +217,19 @@ PARAM_ATOL, PARAM_RTOL = 7e-4, 1e-3
 BRANCH_FLIPS_MAX = 186
 # (N, C) of the 12 attention calls per forward: 4 at each MSCSA scale
 ATTN_SHAPES = ((256, 256), (1024, 128), (4096, 64))
+# ((Cin, D, H, W), Cout, bias, convs a forward) of the 3x3x3 convs of the two
+# Encoder3Ds at the flagship width (models/encoder3d.py: each has the stem,
+# one BasicBlock of 3 convs at 64x64 and two BasicBlocks of 2 + 3 at each
+# of the other two scales): 32 launches of conv3d_fprop a float32 forward
+# at B >= 8, fewer where a shape's grid falls under conv.MIN_BLOCKS (8 at
+# the stream's B = 1)
+CONV_SHAPES = (((32, 8, 64, 64), 64, True, 2),
+               ((64, 8, 64, 64), 64, False, 6),
+               ((64, 4, 32, 32), 128, False, 4),
+               ((128, 4, 32, 32), 128, False, 8),
+               ((128, 2, 16, 16), 256, False, 4),
+               ((256, 2, 16, 16), 256, False, 8))
+CONV_PER_FORWARD = sum(n for *_, n in CONV_SHAPES)
 # the bfloat16 modes: (name, input dtype, bf16_ops)
 BF16_MODES = (("bf16", "bfloat16", False), ("f32_bf16ops", "float32", True),
               ("bf16_bf16ops", "bfloat16", True))
@@ -434,6 +457,110 @@ def check_attention(torch, peaks):
         rows.append(row)
         del k, q, m, got, again, want
     return rows
+
+
+def check_conv(torch, peaks):
+    """The float32 conv kernel (csrc/conv3d_fprop.cu, 3xTF32 on the tensor
+    cores) at each Encoder3D shape, at B=ATTN_BATCH as served and B=1 as
+    streamed: max |error| over max |reference| within conv.REL_TOL of
+    F.conv3d in float32 with TF32 off and of F.conv3d in float64,
+    bit-identical on a second call; timed beside the plain version, which is
+    the library's call (F.conv3d: cuDNN, TF32 off). The bound is the larger
+    of the 3xTF32 products (product_route) and the bytes of input, weights
+    and output. Returns per-shape results."""
+    import torch.nn.functional as F
+
+    from hupr_tpu_torch.ops import conv
+    from hupr_tpu_torch.utils.device import float32_math
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    rows = []
+    for b in (ATTN_BATCH, 1):
+        for (cin, d, h, w), cout, with_bias, per in CONV_SHAPES:
+            x = torch.randn((b, cin, d, h, w), generator=gen, device="cuda")
+            wt = torch.randn((cout, cin, 3, 3, 3), generator=gen,
+                             device="cuda") / math.sqrt(27 * cin)
+            bias = torch.randn((cout,), generator=gen, device="cuda") \
+                if with_bias else None
+            with torch.inference_mode(), float32_math():
+                got = conv.conv3d_3x3x3(x, wt, bias)
+                again = conv.conv3d_3x3x3(x, wt, bias)
+                want = conv.conv_plain(x, wt, bias)
+                want64 = F.conv3d(x.double(), wt.double(), None if bias is None
+                                  else bias.double(), padding=1)
+                scale = want64.abs().max().item()
+                err = (got - want).abs().max().item()
+                row = {"kernel": "conv3d_fprop", "mode": "f32", "B": b,
+                       "Cin": cin, "DHW": [d, h, w], "Cout": cout,
+                       "bias": with_bias, "per_forward": per,
+                       "max_abs_err": err, "rel_err": err / scale,
+                       "rel_err_vs_f64": (got.double() - want64).abs().max()
+                       .item() / scale,
+                       "plain_rel_err_vs_f64": (want.double() - want64).abs()
+                       .max().item() / scale,
+                       "repeats_bit_for_bit": torch.equal(got, again)}
+                del again, want, want64
+                reps = 10 if b > 1 else 20
+                row["kernel_ms"] = cuda_ms(torch, lambda: conv.conv3d_3x3x3(
+                    x, wt, bias), reps)
+                row["plain_ms"] = cuda_ms(torch, lambda: conv.conv_plain(
+                    x, wt, bias), reps)
+            row["library_ms"] = row["plain_ms"]
+            flops = 2 * b * d * h * w * cout * 27 * cin
+            nbytes = 4 * (x.numel() + wt.numel() + got.numel()
+                          + (cout if with_bias else 0))
+            ops_s = flops * product_route("f32", "f32", peaks)[1]
+            bytes_s = nbytes / peaks["bytes"]
+            row["bound_ms"] = 1e3 * max(ops_s, bytes_s)
+            row["bound_by"] = "operations" if ops_s >= bytes_s else "bytes"
+            row["tflops"] = flops / row["kernel_ms"] / 1e9
+            print(json.dumps(row), flush=True)
+            if not (row["rel_err"] <= conv.REL_TOL
+                    and row["rel_err_vs_f64"] <= conv.REL_TOL):
+                raise AssertionError(f"conv3d_fprop at {tuple(x.shape)} -> "
+                                     f"{cout}: {row}, bar {conv.REL_TOL}")
+            if not row["repeats_bit_for_bit"]:
+                raise AssertionError(f"conv3d_fprop at {tuple(x.shape)} -> "
+                                     f"{cout}: two calls gave different bits")
+            rows.append(row)
+            del x, wt, bias, got
+    return rows
+
+
+@contextlib.contextmanager
+def plain_convs():
+    """Within the body models/blocks.Conv3d sends every conv to F.conv3d
+    (cuDNN), as it does where conv.takes_kernel refuses one: the plain
+    route of a comparison."""
+    from hupr_tpu_torch.ops import conv
+
+    takes = conv.takes_kernel
+    conv.takes_kernel = lambda *args, **kwargs: False
+    try:
+        yield
+    finally:
+        conv.takes_kernel = takes
+
+
+def conv_per_forward(batch: int) -> int:
+    """conv3d_fprop's launches in a float32 forward without gradients at
+    `batch` windows: the convs of CONV_SHAPES whose grid conv.takes_kernel
+    takes."""
+    from hupr_tpu_torch.ops import conv
+
+    return sum(n for (cin, d, h, w), cout, _, n in CONV_SHAPES
+               if conv.grid_blocks((batch, cin, d, h, w), cout)
+               >= conv.MIN_BLOCKS)
+
+
+def conv_launches_want(attention_launches: int, mode: str,
+                       batch: int = ATTN_BATCH) -> int:
+    """conv3d_fprop's launches beside `attention_launches` forward
+    attention launches of forwards without gradients at `batch` windows:
+    conv_per_forward(batch) to each 12 in float32 (mode f32), none in
+    bfloat16."""
+    return conv_per_forward(batch) * attention_launches // 12 \
+        if mode == "f32" else 0
 
 
 def allclose_excess(a, b, atol, rtol) -> float:
@@ -739,9 +866,10 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
                 mode: str = "f32", maxval_tol: float = MAXVAL_TOL,
                 vs_f32=None):
     """Serve `requests` through `cfg` (the flagship config by default) with
-    the kernel, then through the eager attention in the same compute dtype;
-    with `vs_f32`, also against the float32 slice's outputs. Returns the
-    slice's results, the kernel path's run and its outputs."""
+    the kernels, then through the eager attention and cuDNN's convolutions
+    (plain_convs) in the same compute dtype; with `vs_f32`, also against
+    the float32 slice's outputs. Returns the slice's results, the kernel
+    path's run and its outputs."""
     import copy
 
     import numpy as np
@@ -749,7 +877,7 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
     from hupr_tpu_torch.config import flagship_serving_config
     from hupr_tpu_torch.engine.pipeline import make_e2e_infer
     from hupr_tpu_torch.models.hupr import build_model
-    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops import attention, conv
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
     cfg = cfg or flagship_serving_config()
@@ -764,9 +892,13 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
                          group=ds.numGroupFrames, num_frames=ds.numFrames)
     cfg_x = copy.deepcopy(cfg)
     cfg_x.MODEL.attention = "xla"
-    run_x = make_e2e_infer(build_model(cfg_x), state, ds.radar_params(),
+    plain = make_e2e_infer(build_model(cfg_x), state, ds.radar_params(),
                            duration=FRAMES, group=ds.numGroupFrames,
                            num_frames=ds.numFrames)
+
+    def run_x(*req):
+        with plain_convs():
+            return plain(*req)
 
     def serve(fn):
         torch.cuda.synchronize()
@@ -777,14 +909,18 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
 
     for fn in (run, run_x):                 # warm-up: cuDNN plans, caches
         fn(*requests[0])
-    # in turns on one card: plain attention, kernel, plain attention
+    # in turns on one card: plain route, kernels, plain route
     _, elapsed_x1 = serve(run_x)
     attention.reset_launch_counts()
+    conv.reset_launch_counts()
     outs, elapsed = serve(run)
     launches = attention.attention_fwd.launches
     by_mode = dict(attention.attention_fwd.launches_by_mode)
     bwd_launches = attention.attention_bwd.launches
+    conv_launches = conv.conv3d_3x3x3.launches
+    conv.reset_launch_counts()
     outs_x, elapsed_x2 = serve(run_x)
+    conv_launches_x = conv.conv3d_3x3x3.launches
 
     per_request = 12
     if by_mode != {mode: per_request * len(requests)} or bwd_launches != 0:
@@ -792,6 +928,12 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
                              f"attention_bwd {bwd_launches} times for "
                              f"{len(requests)} requests, expected "
                              f"{per_request} each in mode {mode} and 0")
+    conv_want = conv_launches_want(launches, mode)
+    if conv_launches != conv_want or conv_launches_x != 0:
+        raise AssertionError(f"serving launched conv3d_fprop "
+                             f"{conv_launches} times for {len(requests)} "
+                             f"requests and {conv_launches_x} on the plain "
+                             f"route, expected {conv_want} and 0")
     k = ds.numKeypoints
     for pred, maxv in outs:
         if tuple(pred.shape) != (FRAMES, k, 2) or \
@@ -817,6 +959,7 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
               "frames_per_s_xla": [frames / elapsed_x1, frames / elapsed_x2],
               "attention_launches": launches,
               "attention_launches_by_mode": by_mode,
+              "conv_launches": conv_launches,
               "maxvals_max_abs_err_vs_xla": maxval_err,
               "pred2d_identical_share_vs_xla": float(same)}
     if vs_f32 is not None:
@@ -946,7 +1089,7 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
     from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
                                              make_train_step)
     from hupr_tpu_torch.models.hupr import build_model
-    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops import attention, conv
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
     make_cfg = make_cfg or flagship_training_config
@@ -1014,6 +1157,7 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         attention.reset_launch_counts()
+        conv.reset_launch_counts()
         t0 = time.perf_counter()
         drive(paths[name], TRAIN_STEPS)
         torch.cuda.synchronize()
@@ -1021,6 +1165,7 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
             "seconds": time.perf_counter() - t0,
             "launches": (attention.attention_fwd.launches,
                          attention.attention_bwd.launches),
+            "conv_launches": conv.conv3d_3x3x3.launches,
             "by_mode": (dict(attention.attention_fwd.launches_by_mode),
                         dict(attention.attention_bwd.launches_by_mode)),
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
@@ -1033,6 +1178,11 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
                              f"times through the kernels and "
                              f"{timing['xla']['launches']} through the plain "
                              f"attention; expected {want} each and (0, 0)")
+    conv_launches = [t["conv_launches"] for t in timing.values()]
+    if conv_launches != [0, 0]:
+        raise AssertionError(f"train steps launched conv3d_fprop "
+                             f"{conv_launches} times; a conv whose gradient "
+                             f"is needed stays on cuDNN")
     losses = {name: [x.item() for x in p["losses"]]
               for name, p in paths.items()}
     if not all(map(math.isfinite, losses["pallas"] + losses["xla"])):
@@ -1079,6 +1229,7 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
               "projection_grad_rel_err_vs_xla": grad_rel,
               "attention_fwd_launches": timing["pallas"]["launches"][0],
               "attention_bwd_launches": timing["pallas"]["launches"][1],
+              "conv_launches": timing["pallas"]["conv_launches"],
               "launches_by_mode": timing["pallas"]["by_mode"],
               "max_memory_allocated": timing["pallas"]["max_memory_allocated"],
               "max_memory_allocated_xla":
@@ -1751,7 +1902,7 @@ def stream_phase(torch, card: str):
     from hupr_tpu_torch.engine.pipeline import make_e2e_infer
     from hupr_tpu_torch.engine.streaming import StreamingPoseEstimator
     from hupr_tpu_torch.models.hupr import build_model
-    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops import attention, conv
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1781,9 +1932,11 @@ def stream_phase(torch, card: str):
         # the main path: one sequence through the graph step
         est = estimator(True)
         attention.reset_launch_counts()
+        conv.reset_launch_counts()
         pred, maxv = stream_sequence(est, frames)
         torch.cuda.synchronize()
         launches = wrapper_launches(attention)["attention_fwd"]
+        conv_launches = conv.conv3d_3x3x3.launches
         pred_e, maxv_e = stream_sequence(estimator(False), frames)
         lag = est.latency_frames
         # the eager first frame, the capture's warm-up step, the capture
@@ -1797,6 +1950,7 @@ def stream_phase(torch, card: str):
             for _ in range(STREAM_WARM):
                 est.process_frame(*frame)
             attention.reset_launch_counts()
+            conv.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(STREAM_TIMED):
@@ -1804,8 +1958,11 @@ def stream_phase(torch, card: str):
             ms = 1e3 * (time.perf_counter() - t0) / STREAM_TIMED
             per_frame = {m: n / STREAM_TIMED for m, n in
                          attention.attention_fwd.launches_by_mode.items()}
-            timing[name] = {"stream_latency_ms": ms,
-                            "wrapper_launches_per_frame": per_frame}
+            timing[name] = {
+                "stream_latency_ms": ms,
+                "wrapper_launches_per_frame": per_frame,
+                "conv_launches_per_frame":
+                    conv.conv3d_3x3x3.launches / STREAM_TIMED}
             # profiled after every other timing (see backward_passes)
             later[f"{mode} {name}"] = \
                 lambda est=est, frame=frame: est.process_frame(*frame)
@@ -1818,6 +1975,7 @@ def stream_phase(torch, card: str):
             "stream_latency_ms": timing["graph"]["stream_latency_ms"],
             "stream_latency_ms_eager": timing["eager"]["stream_latency_ms"],
             "timing": timing, "sequence_wrapper_launches": launches,
+            "sequence_conv_launches": conv_launches,
             "maxvals_max_abs_err_vs_e2e": float(np.abs(maxv - want_maxv)
                                                 .max()),
             "keypoint_agreement_vs_e2e": agree,
@@ -1826,11 +1984,17 @@ def stream_phase(torch, card: str):
             "keypoints_graph_equal_eager": bool((pred == pred_e).all())}
         checks = {
             "launches": launches == want_launches,
+            "conv launches": conv_launches
+            == conv_launches_want(12 * (3 + lag), mode, 1),
             # a replay calls no wrapper; an eager step launches 12
             "per-frame wrapper launches":
                 timing["graph"]["wrapper_launches_per_frame"] == {}
                 and timing["eager"]["wrapper_launches_per_frame"]
                 == {mode: 12.0},
+            "per-frame conv launches":
+                timing["graph"]["conv_launches_per_frame"] == 0
+                and timing["eager"]["conv_launches_per_frame"]
+                == conv_launches_want(12, mode, 1),
             "shapes": pred.shape == want_pred.shape
             and maxv.shape == want_maxv.shape,
             "finite": bool(np.isfinite(maxv).all()),
@@ -3554,10 +3718,10 @@ def shard_serve(torch, mesh, mode: str, spatial: int) -> dict:
     SHARD_REQUESTS timed ones (host clock, the card synchronized after
     each) and one SHARD_SMALL request. Returns the outputs on the host,
     ms a request, and the launches of the timed requests and of the small
-    one."""
+    one (attention by mode, conv)."""
     from hupr_tpu_torch.engine.pipeline import make_e2e_infer
     from hupr_tpu_torch.models.hupr import build_model
-    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops import attention, conv
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
     cfg = shard_config(mode, spatial)
@@ -3576,6 +3740,7 @@ def shard_serve(torch, mesh, mode: str, spatial: int) -> dict:
     run(*requests[0])
     torch.cuda.synchronize()
     attention.reset_launch_counts()
+    conv.reset_launch_counts()
     outs, ms = [], []
     for req in requests[1:]:
         t0 = time.perf_counter()
@@ -3583,26 +3748,30 @@ def shard_serve(torch, mesh, mode: str, spatial: int) -> dict:
         torch.cuda.synchronize()
         ms.append(1e3 * (time.perf_counter() - t0))
     launches = dict(attention.attention_fwd.launches_by_mode)
+    conv_launches = conv.conv3d_3x3x3.launches
     frames, duration = SHARD_SMALL
     small = shard_requests(torch, cfg, frames, 1, 8)[0]
     run_small = entry(duration)
     attention.reset_launch_counts()
+    conv.reset_launch_counts()
     outs.append(run_small(*small))
     torch.cuda.synchronize()
     return {"outs": [tuple(t.cpu() for t in o) for o in outs], "ms": ms,
-            "launches": launches,
-            "small_launches": dict(attention.attention_fwd.launches_by_mode)}
+            "launches": launches, "conv_launches": conv_launches,
+            "small_launches": dict(attention.attention_fwd.launches_by_mode),
+            "small_conv_launches": conv.conv3d_3x3x3.launches}
 
 
 def shard_seq_eval(torch, mesh, data: str) -> dict:
     """SequenceEvaluator over `mesh` (None: this process alone) on the
     flagship recipe with the seeded N(0, 0.03) weights, over the one
     RUNNER_FRAMES-frame test sequence under `data` at TEST.batchSize 32.
-    Returns the batches on the host, the launches and the seconds."""
+    Returns the batches on the host, the launches (attention by mode,
+    conv) and the seconds."""
     from hupr_tpu_torch.data.dataset import get_dataset
     from hupr_tpu_torch.engine.seq_eval import SequenceEvaluator
     from hupr_tpu_torch.models.hupr import build_model
-    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops import attention, conv
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
     cfg = runner_config(data)
@@ -3613,11 +3782,13 @@ def shard_seq_eval(torch, mesh, data: str) -> dict:
         raise AssertionError("SequenceEvaluator's gate refused the mesh")
     ds = get_dataset("test", cfg)
     attention.reset_launch_counts()
+    conv.reset_launch_counts()
     batches, seconds = timed(torch, lambda: [
         ({k: v.cpu() for k, v in out.items()}, ids, t)
         for out, ids, _, t in ev.eval_batches(ds)])
     return {"batches": batches, "seconds": seconds,
-            "launches": dict(attention.attention_fwd.launches_by_mode)}
+            "launches": dict(attention.attention_fwd.launches_by_mode),
+            "conv_launches": conv.conv3d_3x3x3.launches}
 
 
 def shard_worker(torch, root: str, opts: dict) -> dict:
@@ -3743,10 +3914,24 @@ def shard_holds(torch, card: str, ranks: list, modes, spatial: int,
             "rank_ms_per_request": [statistics.mean(r["ms"])
                                     for r in per_rank],
             "launches_by_rank": [lc.get(mode, 0) for lc in launches],
-            "small_launches_by_rank": [lc.get(mode, 0) for lc in small]}
+            "small_launches_by_rank": [lc.get(mode, 0) for lc in small],
+            "conv_launches_by_rank": [r["conv_launches"] for r in per_rank],
+            "small_conv_launches_by_rank": [r["small_conv_launches"]
+                                            for r in per_rank]}
         if any(lc != want for lc in launches) or \
                 any(lc != {mode: 12} for lc in small):
             failed.append(f"{mode} launches {launches}, small {small}")
+        # each rank serves its share of the frames: one window a frame
+        conv_want = (conv_launches_want(12 * SHARD_REQUESTS, mode,
+                                        FRAMES // SHARD_WORLD),
+                     conv_launches_want(12, mode,
+                                        SHARD_SMALL[0] // SHARD_WORLD))
+        if any((r["conv_launches"], r["small_conv_launches"]) != conv_want
+               for r in per_rank):
+            failed.append(f"{mode} conv launches "
+                          f"{result[mode]['conv_launches_by_rank']}, small "
+                          f"{result[mode]['small_conv_launches_by_rank']}, "
+                          f"expected {conv_want}")
     if data:
         one = shard_seq_eval(torch, None, data)
         r0 = ranks[0]["seq"]
@@ -3768,12 +3953,21 @@ def shard_holds(torch, card: str, ranks: list, modes, spatial: int,
             "loss_max_rel_err": loss_rel, "batches": len(ref),
             "ids_equal": same_ids,
             "seconds_by_rank": [r["seq"]["seconds"] for r in ranks],
-            "launches_by_rank": [lc.get("f32", 0) for lc in launches]}
+            "launches_by_rank": [lc.get("f32", 0) for lc in launches],
+            "conv_launches_by_rank": [r["seq"]["conv_launches"]
+                                      for r in ranks]}
         if not (loss_rel <= SHARD_LOSS_RTOL and same_ids
                 and len(ref) == n_batches):
             failed.append(f"seq_eval losses {loss_rel}, ids {same_ids}")
         if any(lc != {"f32": 12 * n_batches} for lc in launches):
             failed.append(f"seq_eval launches {launches}")
+        conv_want = conv_launches_want(12 * n_batches, "f32",
+                                       32 // SHARD_WORLD)
+        if result["seq_eval"]["conv_launches_by_rank"] != \
+                [conv_want] * len(ranks):
+            failed.append(f"seq_eval conv launches "
+                          f"{result['seq_eval']['conv_launches_by_rank']}, "
+                          f"expected {conv_want}")
     result["failed"] = failed
     return result
 
@@ -3899,15 +4093,17 @@ _EXPORT_FRESH = """
 import json, sys
 import torch
 from hupr_tpu_torch.engine.export import load_artifact
-from hupr_tpu_torch.ops import attention
+from hupr_tpu_torch.ops import attention, conv
 serve = load_artifact(sys.argv[1])
 request = torch.load(sys.argv[2])
 serve(*request)
 attention.reset_launch_counts()
+conv.reset_launch_counts()
 pred, maxv = serve(*request)
 torch.cuda.synchronize()
 torch.save((pred.cpu(), maxv.cpu()), sys.argv[3])
 print(json.dumps({"launches": attention.attention_fwd.launches_by_mode,
+                  "conv_launches": conv.conv3d_3x3x3.launches,
                   "model_code": sorted(m for m in sys.modules if m.startswith(
                       ("hupr_tpu_torch.models", "hupr_tpu_torch.engine.pipeline",
                        "jax")))}))
@@ -3919,8 +4115,8 @@ def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
     """Export `cfg`'s serving program with the slice's N(0, 0.03) seed-0
     weights on the CPU into build/, load it onto the card and serve the
     slice's requests, in turns with make_e2e_infer's `run` (whose outputs
-    on them are `outs_live`): 12 wrapper launches a request in `mode`, the
-    outputs at EXPORT_BARS. With `fresh`, also a new process that imports
+    on them are `outs_live`): 12 wrapper launches a request in `mode` and
+    conv_launches_want's conv launches, the outputs at EXPORT_BARS. With `fresh`, also a new process that imports
     engine.export alone loads the file and serves one request through the
     kernel, and an artifact exported on the card serves what the
     CPU-exported one serves."""
@@ -3928,7 +4124,7 @@ def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
                                               load_artifact, load_serving,
                                               save_artifact)
     from hupr_tpu_torch.models.hupr import build_model
-    from hupr_tpu_torch.ops import attention
+    from hupr_tpu_torch.ops import attention, conv
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
     ds = cfg.DATASET
@@ -3957,9 +4153,11 @@ def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
     serve(*requests[0])                     # warm-up: cuDNN plans, caches
     _, live1 = timed_serve(run)
     attention.reset_launch_counts()
+    conv.reset_launch_counts()
     outs, elapsed = timed_serve(serve)
     by_mode = dict(attention.attention_fwd.launches_by_mode)
     bwd = attention.attention_bwd.launches
+    conv_launches = conv.conv3d_3x3x3.launches
     _, live2 = timed_serve(run)
     frames = FRAMES * len(requests)
     err, agree = decode_vs(outs, outs_live)
@@ -3976,9 +4174,10 @@ def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
                                               frames / live2],
               "attention_launches": sum(by_mode.values()),
               "attention_launches_by_mode": by_mode,
+              "conv_launches": conv_launches,
               "maxvals_max_abs_err_vs_live": err,
               "keypoint_agreement_vs_live": agree}
-    fresh_launches = 0
+    fresh_launches = fresh_conv_launches = 0
     if fresh:
         req_path = os.path.join(EXPORT_DIR, "request.pt")
         out_path = os.path.join(EXPORT_DIR, "fresh_out.pt")
@@ -3998,6 +4197,7 @@ def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
         ferr, fagree = decode_vs([tuple(t.cuda() for t in fresh_out)],
                                  outs[:1])
         fresh_launches = sum(seen["launches"].values())
+        fresh_conv_launches = seen["conv_launches"]
         result["fresh_process"] = {
             "seconds": time.perf_counter() - t0, **seen,
             "maxvals_max_abs_err_vs_artifact": ferr,
@@ -4019,13 +4219,19 @@ def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
         raise AssertionError(f"the artifact launched attention_fwd {by_mode}"
                              f" and attention_bwd {bwd} times for "
                              f"{len(requests)} requests")
+    conv_want = conv_launches_want(per_request * len(requests), mode)
+    if conv_launches != conv_want:
+        raise AssertionError(f"the artifact launched conv3d_fprop "
+                             f"{conv_launches} times for {len(requests)} "
+                             f"requests, expected {conv_want}")
     if not (err <= tol and agree >= agree_bar):
         raise AssertionError(f"the artifact against make_e2e_infer: maxvals"
                              f" within {err} (bar {tol}), keypoints "
                              f"{agree} (bar {agree_bar})")
     if fresh:
         fr, ec = result["fresh_process"], result["exported_on_card"]
-        if fr["launches"] != {mode: per_request} or fr["model_code"]:
+        if fr["launches"] != {mode: per_request} or fr["model_code"] or \
+                fr["conv_launches"] != conv_launches_want(per_request, mode):
             raise AssertionError(f"the fresh process: {fr}")
         for e, a in ((fr["maxvals_max_abs_err_vs_artifact"],
                       fr["keypoint_agreement_vs_artifact"]),
@@ -4035,7 +4241,8 @@ def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
                 raise AssertionError(f"fresh process or card export: {fr}, "
                                      f"{ec}")
     return {"launches": by_mode.get(mode, 0),
-            "fresh_launches": fresh_launches}
+            "fresh_launches": fresh_launches, "conv_launches": conv_launches,
+            "fresh_conv_launches": fresh_conv_launches}
 
 
 # profile_train's attention kernels: the forward in mode f32, and the
@@ -4131,6 +4338,7 @@ def main() -> int:
     from hupr_tpu_torch.config import (fast_serving_config,
                                        fast_training_config,
                                        flagship_serving_config)
+    from hupr_tpu_torch.ops import conv
     from hupr_tpu_torch.ops.cuda_build import build
 
     smi = smi_line()
@@ -4162,6 +4370,7 @@ def main() -> int:
                 print(f"  {name}: {line.strip()}", flush=True)
 
     rows = check_attention(torch, peaks)
+    conv_rows = check_conv(torch, peaks)
     bwd_rows = check_attention_bwd(torch, peaks)
     mode_rows = check_attention_modes(torch, peaks)
     b1_rows = check_attention_b1(torch, peaks)
@@ -4362,6 +4571,41 @@ def main() -> int:
         entries.append(kernel_entry(
             f"attention_bwd_{mode}", mode, "attention_bwd", bwd_src,
             bwd_launches, [r["bwd_B20"] for r in mine], 4, per_step))
+    # a forward's convs: each shape's row taken as often as a forward runs it
+    per_conv = (f"one request: {CONV_PER_FORWARD} launches, the Encoder3Ds' "
+                f"3x3x3 convs at B={ATTN_BATCH}")
+    conv_b32, conv_b1 = ([{**r, **{key: r["per_forward"] * r[key] for key in
+                                   ("kernel_ms", "plain_ms", "library_ms",
+                                    "bound_ms")}}
+                          for r in conv_rows if r["B"] == b]
+                         for b in (ATTN_BATCH, 1))
+    b1_taken = [r for r in conv_b1 if conv.grid_blocks(
+        (1, r["Cin"], *r["DHW"]), r["Cout"]) >= conv.MIN_BLOCKS]
+    entries.append(kernel_entry(
+        "conv3d_fprop", "f32", "conv3d_fprop", None,
+        {"serve": sl["conv_launches"], "serve_bf16": sl16["conv_launches"],
+         "train": tr["conv_launches"], "train_bf16": tr16["conv_launches"],
+         "export": ex["conv_launches"],
+         "export_fresh_process": ex["fresh_conv_launches"],
+         "export_bf16": ex16["conv_launches"],
+         "stream": st["f32"]["sequence_conv_launches"],
+         "stream_bf16": st["bf16"]["sequence_conv_launches"],
+         **{f"shard_rank{r}": n for r, n in
+            enumerate(sh["f32"]["conv_launches_by_rank"])},
+         **{f"shard_small_rank{r}": n for r, n in
+            enumerate(sh["f32"]["small_conv_launches_by_rank"])},
+         **{f"shard_seq_eval_rank{r}": n for r, n in
+            enumerate(sh["seq_eval"]["conv_launches_by_rank"])}},
+        conv_b32, 1, per_conv,
+        stream_B1={key: sum(r[key] for r in b1_taken)
+                   for key in ("kernel_ms", "plain_ms", "library_ms",
+                               "bound_ms")}
+        | {"per": f"one streamed frame: {conv_per_forward(1)} launches, "
+                  f"B=1 (the other convs stay on cuDNN)"},
+        body="conv3d_fprop_tf32<W> (3xTF32 on mma.sync, csrc/tf32.cuh)",
+        rel_err=max(r["rel_err"] for r in conv_rows),
+        rel_err_vs_f64=max(r["rel_err_vs_f64"] for r in conv_rows),
+        library="F.conv3d (cuDNN, TF32 off), also the plain version"))
     micro_src = "scripts/attn_microbench.py:73"
     for mode, suffix, body in (
             ("f32", "", "attention_fwd_unfolded_tf32 (3xTF32 on mma.sync, "

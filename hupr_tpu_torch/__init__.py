@@ -8,8 +8,8 @@ NVIDIA Hopper (sm_90a).
                     (engine.checkpoint), the OKS evaluator (eval)
   engine.pipeline   make_e2e_infer: raw ADC frames -> keypoints
   engine.export     that program as a torch.export artifact, the attention
-                    kernels kept as custom ops (export_serving,
-                    load_serving)
+                    and convolution kernels kept as custom ops
+                    (export_serving, load_serving)
   engine.steps      make_train_step / make_eval_step: one batch of raw
                     windows and joints -> losses, an optimizer step
   data              the HuPR dataset, its batch loader and GT JSON; the
@@ -25,7 +25,9 @@ NVIDIA Hopper (sm_90a).
                     reference's state_dict keys; convert.state_dict_from_jax
   ops               radar DSP (torch.fft), normalize, resize, Gaussian
                     targets, BCE, argmax decode, the MSCSA attention and
-                    its forward and backward CUDA kernels (csrc/)
+                    its forward and backward CUDA kernels, the Encoder3Ds'
+                    float32 3x3x3 convolution forward and its kernel
+                    (csrc/)
   parallel          data parallel and multi-process runs over
                     torch.distributed (HUPR_MULTIHOST=1, one process per
                     card): batch blocks, synced BN, rank-file eval

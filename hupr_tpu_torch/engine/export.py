@@ -3,13 +3,15 @@ serialize the e2e serving program (raw ADC frames -> keypoints,
 engine/pipeline.ServingProgram, the body `make_e2e_infer` runs) to a
 `torch.export` artifact, so that a deployment host runs inference without
 the model code or the config stack: only torch and this module, whose
-import registers the attention kernels' custom ops (ops/attention.py).
+import registers the kernels' custom ops (ops/attention.py, ops/conv.py).
 Weights are baked into the artifact; shapes are static (a fixed frame-stack
 size F), one program per stack size.
 
-The decoder's attentions stay `hupr_tpu_torch::attention_fwd` nodes, so an
-artifact exported on a CPU host launches the Hopper kernel when it is
-loaded onto the card, and the plain twin when it is loaded onto the CPU.
+The decoder's attentions stay `hupr_tpu_torch::attention_fwd` nodes, and
+a float32 model's Encoder3D convolutions `hupr_tpu_torch::conv3d_3x3x3`
+nodes, so an artifact exported on a CPU host launches the Hopper kernels
+when it is loaded onto the card, and the plain twins when it is loaded onto
+the CPU.
 The graph is not decomposed: it runs the ATen ops `make_e2e_infer` runs.
 
     blob = export_serving(model, state, params, frames=32)
@@ -37,6 +39,7 @@ import torch
 from torch.export.passes import move_to_device_pass
 
 import hupr_tpu_torch.ops.attention  # noqa: F401  (registers the ops)
+import hupr_tpu_torch.ops.conv  # noqa: F401
 from hupr_tpu_torch.utils.device import float32_math, resolve_device
 
 MAGIC = b"HUPRTEXP1\n"

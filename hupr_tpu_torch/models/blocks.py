@@ -50,13 +50,18 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch import nn
 
+from hupr_tpu_torch.ops import conv
 from hupr_tpu_torch.ops.resize import scale_by_factor
 from hupr_tpu_torch.utils import profiling
 
 
 class _CastConv:
     """ConvNd whose forward runs in `compute_dtype` (in float32, `.to` hands
-    back the same tensors and this is the plain conv)."""
+    back the same tensors and this is the plain conv). A float32 3x3x3
+    Conv3d whose gradient nobody needs goes to the op
+    hupr_tpu_torch::conv3d_3x3x3 (ops/conv.takes_kernel: the Hopper kernel
+    on the card, F.conv3d itself on the CPU); every other conv is
+    F.conv3d."""
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
                  **kwargs):
@@ -66,7 +71,10 @@ class _CastConv:
     def forward(self, x):
         dt = self.compute_dtype
         bias = None if self.bias is None else self.bias.to(dt)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), bias)
+        x, weight = x.to(dt), self.weight.to(dt)
+        if conv.takes_kernel(self, x, weight, bias):
+            return conv.conv3d_3x3x3(x.contiguous(), weight, bias)
+        return self._conv_forward(x, weight, bias)
 
 
 class Conv2d(_CastConv, nn.Conv2d):

@@ -7,12 +7,15 @@ Times, at (B=32, T=8, 64, 64, Cin=64) -> Cout=64 with a 3x3x3 SAME kernel
   shift     27 shifted-slice matmuls accumulated (K=Cin per tap), NDHWC
   im2col    explicit patch extraction + one (27*Cin) GEMM, NDHWC (about
             7.2 GB of float32 patches at the defaults)
+  kernel    the port's own, ops/conv.conv3d_3x3x3 on NCDHW input: on the
+            card csrc/conv3d_fprop.cu, an implicit GEMM in 3xTF32 (float32
+            only); on the CPU its plain version
 
 each in float32 with TF32 off (utils.device.float32_math, as the model's
-float32 path runs) and again in bfloat16 (MODEL.computeDtype bfloat16,
-the fast recipes). cuDNN's float32 convolutions take most of a float32
-request and of a float32 train step, so these numbers say whether a
-reformulation could move them.
+float32 path runs) and, all but the kernel, again in bfloat16
+(MODEL.computeDtype bfloat16, the fast recipes). cuDNN's float32
+convolutions took most of a float32 request and take most of a float32
+train step, so these numbers say whether a reformulation could move them.
 
 Usage: python -m hupr_tpu_torch.scripts.conv_microbench [B T H C inner reps]
        [--device cpu]
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from hupr_tpu_torch.ops.conv import conv3d_3x3x3
 from hupr_tpu_torch.utils.device import float32_math, resolve_device
 
 BF16_BAR = (2e-2, 2.0 ** -6)        # atol, rtol against native in bfloat16
@@ -85,9 +89,10 @@ def im2col(x, w):
     return torch.matmul(cols, w.reshape(27 * c, -1))
 
 
-# name -> (function, input layout)
+# name -> (function, input layout); F32_FORMS adds the float32-only kernel
 FORMS = {"native": (native, "ncdhw"), "shift": (shift, "ndhwc"),
          "im2col": (im2col, "ndhwc")}
+F32_FORMS = {**FORMS, "kernel": (conv3d_3x3x3, "ncdhw")}
 
 
 def operands(x, w, layout: str, device, dtype) -> tuple:
@@ -149,7 +154,8 @@ def run(b, t, h, c, inner, reps, device, dtype) -> list:
     """One row per form: ms per conv and max abs error against native."""
     x_np, w_np = inputs(b, t, h, c)
     rows, ref = [], None
-    for name, (op, layout) in FORMS.items():
+    forms = F32_FORMS if dtype == torch.float32 else FORMS
+    for name, (op, layout) in forms.items():
         x, w = operands(x_np, w_np, layout, device, dtype)
         out = to_ndhwc(op(x, w), layout)
         if ref is None:

@@ -1,0 +1,361 @@
+"""The Encoder3Ds' float32 3x3x3 convolution op (hupr_tpu_torch/ops/conv.py)
+on the CPU: which convs go to it, its CPU and fake kernels against
+F.conv3d at the Encoder3D shapes, and a torch model of the card kernel's
+3xTF32 arithmetic against a float64 convolution, which sets the card tests'
+bar (tests/test_torch_cuda.py)."""
+
+import collections
+import contextlib
+import importlib.util
+import os
+
+import pytest
+import torch
+import torch.nn.functional as F
+from torch._subclasses.fake_tensor import FakeTensorMode
+
+from hupr_tpu_torch.models.blocks import BasicBlock, Conv2d, Conv3d
+from hupr_tpu_torch.models.encoder3d import Encoder3D
+from hupr_tpu_torch.models.hupr import HuPRNet
+from hupr_tpu_torch.models.mnet import MNet
+from hupr_tpu_torch.ops import attention, conv
+
+torch.set_num_threads(2)
+
+# (input shape at B = 1, output channels, bias) of each 3x3x3 conv of an
+# Encoder3D at the flagship widths (numFilters 32, 64x64 maps, 8 frames)
+ENCODER_CONVS = [((1, 32, 8, 64, 64), 64, True),
+                 ((1, 64, 8, 64, 64), 64, False),
+                 ((1, 64, 4, 32, 32), 128, False),
+                 ((1, 128, 4, 32, 32), 128, False),
+                 ((1, 128, 2, 16, 16), 256, False),
+                 ((1, 256, 2, 16, 16), 256, False)]
+
+
+def _draw(shape, cout, bias, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(shape, generator=gen)
+    w = torch.randn((cout, shape[1], 3, 3, 3), generator=gen) \
+        / (27 * shape[1]) ** 0.5
+    b = torch.randn((cout,), generator=gen) if bias else None
+    return x, w, b
+
+
+@contextlib.contextmanager
+def _counting(monkeypatch):
+    """Count the convs that models/blocks sends to the op."""
+    calls = []
+    op = conv.conv3d_3x3x3
+
+    def counted(x, weight, bias=None):
+        calls.append((tuple(x.shape), tuple(weight.shape)))
+        return op(x, weight, bias)
+
+    monkeypatch.setattr(conv, "conv3d_3x3x3", counted)
+    yield calls
+
+
+# ------------------------------------------------------- the dispatch rule
+
+def _x(cin=32, w=16, dtype=torch.float32):
+    """A small map at a batch whose grid fills conv.MIN_BLOCKS (64 blocks
+    at 64 output channels and W <= 16)."""
+    return torch.zeros((64, cin, 2, 4, w), dtype=dtype)
+
+
+@pytest.mark.parametrize("make,x,grad,want", [
+    # the Encoder3D's 3x3x3 convs, autograd off: the op
+    (lambda: Conv3d(32, 64, 3, 1, 1), _x(), False, True),
+    (lambda: Conv3d(64, 128, 3, 1, 1, bias=False), _x(64, 32), False, True),
+    (lambda: Conv3d(256, 256, 3, 1, 1, bias=False), _x(256, 8), False, True),
+    (lambda: Conv3d(32, 64, 3, 1, 1), _x(w=64), False, True),
+    # their gradient is needed: F.conv3d
+    (lambda: Conv3d(32, 64, 3, 1, 1), _x(), True, False),
+    # bfloat16 compute dtype: F.conv3d
+    (lambda: Conv3d(32, 64, 3, 1, 1, compute_dtype=torch.bfloat16), _x(),
+     False, False),
+    # the temporal merges and MNet's convs
+    (lambda: Conv3d(64, 64, (8, 1, 1), bias=False), _x(64), False, False),
+    (lambda: Conv3d(2, 32, (2, 1, 1), (2, 1, 1)), _x(2), False, False),
+    # shapes the kernel is not built for
+    (lambda: Conv3d(4, 64, 3, 1, 1), _x(4), False, False),
+    (lambda: Conv3d(32, 32, 3, 1, 1), _x(), False, False),
+    (lambda: Conv3d(32, 64, 3, 1, 1), _x(w=24), False, False),
+    (lambda: Conv3d(32, 64, 3, 1, 1), _x(w=128), False, False),
+    (lambda: Conv3d(32, 64, 3, 1, 1), _x(w=4), False, False),
+    # other strides, paddings, dilations, groups, padding modes
+    (lambda: Conv3d(32, 64, 3, 2, 1), _x(), False, False),
+    (lambda: Conv3d(32, 64, 3, 1, 0), _x(), False, False),
+    (lambda: Conv3d(32, 64, 3, 1, 2, dilation=2), _x(), False, False),
+    (lambda: Conv3d(32, 64, 3, 1, 1, groups=2), _x(), False, False),
+    (lambda: Conv3d(32, 64, 3, 1, 1, padding_mode="reflect"), _x(), False,
+     False),
+])
+def test_takes_kernel(make, x, grad, want):
+    """ops/conv.takes_kernel on the module as blocks.Conv3d calls it: the
+    weight and bias in the compute dtype, autograd on or off."""
+    m = make()
+    dt = m.compute_dtype
+    with torch.set_grad_enabled(grad):
+        bias = None if m.bias is None else m.bias.to(dt)
+        assert conv.takes_kernel(m, x.to(dt), m.weight.to(dt), bias) == want
+
+
+@pytest.mark.parametrize("b,want", [
+    (1, [True, True, False, False, False, False]),
+    (7, [True, True, True, True, False, False]),
+    (8, [True] * 6)])
+def test_takes_kernel_needs_a_grid_that_fills_the_card(b, want):
+    """The Encoder3D's convs at batch b: the kernel where its grid has at
+    least conv.MIN_BLOCKS blocks. At the stream's B = 1 those are the two
+    convs at 64x64 (128 blocks); the deeper ones (32 and 8 blocks) stay
+    F.conv3d."""
+    got, blocks = [], []
+    for shape, cout, bias in ENCODER_CONVS:
+        m = Conv3d(shape[1], cout, 3, 1, 1, bias=bias).requires_grad_(False)
+        x = torch.zeros((b, *shape[1:]), device="meta")
+        got.append(conv.takes_kernel(m, x, m.weight, m.bias))
+        blocks.append(conv.grid_blocks(x.shape, cout))
+    assert got == want
+    assert [n // b for n in blocks] == [128, 128, 32, 32, 8, 8]
+
+
+def test_takes_kernel_with_grad_on_and_nothing_to_differentiate():
+    """Autograd on but no input requires grad (frozen weights): the op."""
+    m = Conv3d(32, 64, 3, 1, 1).requires_grad_(False)
+    assert torch.is_grad_enabled()
+    assert conv.takes_kernel(m, _x(), m.weight, m.bias)
+
+
+@pytest.mark.parametrize("mode", ["inference", "no_grad", "grad"])
+def test_conv3d_module_routes_by_grad_mode(monkeypatch, mode):
+    """blocks.Conv3d's forward: the op under inference_mode or no_grad,
+    F.conv3d when autograd records; the same values either way."""
+    m = Conv3d(32, 64, 3, 1, 1)
+    x = torch.randn((64, 32, 2, 3, 8))
+    ctx = {"inference": torch.inference_mode(), "no_grad": torch.no_grad(),
+           "grad": contextlib.nullcontext()}[mode]
+    with _counting(monkeypatch) as calls, ctx:
+        got = m(x)
+    assert len(calls) == (0 if mode == "grad" else 1)
+    assert got.requires_grad == (mode == "grad")
+    torch.testing.assert_close(got.detach(), F.conv3d(x, m.weight, m.bias,
+                                                      padding=1),
+                               rtol=0, atol=0)
+
+
+def test_conv2d_and_mnet_never_take_the_op(monkeypatch):
+    """2-D convs (the decoder's) and MNet's (2, 1, 1) convs stay F.conv*."""
+    with _counting(monkeypatch) as calls, torch.inference_mode():
+        Conv2d(64, 64, 3, 1, 1)(torch.randn((1, 64, 8, 8)))
+        MNet(32)(torch.randn((2, 2, 8, 4, 4)))
+    assert calls == []
+
+
+def test_basic_block_strided_input_is_made_contiguous(monkeypatch):
+    """A strided NCDHW view reaches the op as a contiguous copy, with the
+    values of F.conv3d on the view."""
+    blk = BasicBlock(32, 64, ndim=3).eval()
+    base = torch.randn((64, 32, 2, 3, 16)).transpose(3, 4)
+    x = base.contiguous().transpose(3, 4)
+    assert not x.is_contiguous()
+    with _counting(monkeypatch) as calls, torch.inference_mode():
+        got = blk(x)
+    assert len(calls) == 3
+    torch.testing.assert_close(got, blk(x.contiguous()).detach(), rtol=0,
+                               atol=0)
+
+
+def _meta_maps(b=32, g=8, side=64, f=32):
+    return torch.empty((b, g, side, side, f), device="meta")
+
+
+@pytest.mark.parametrize("grad,dtype,want", [
+    (False, torch.float32, 32), (True, torch.float32, 0),
+    (False, torch.bfloat16, 0)])
+def test_flagship_request_sends_each_encoder_conv(monkeypatch, grad, dtype,
+                                                  want):
+    """HuPRNet at the flagship geometry on meta tensors (the ops' shape
+    functions, attention.meta_stands_for_card): a served float32 request
+    sends the 16 3x3x3 convs of each of the two Encoder3Ds to the op; a
+    forward that autograd records, and a bfloat16 model, send none."""
+    model = HuPRNet(num_filters=32, heatmap_size=64, attn_impl="pallas",
+                    compute_dtype=dtype).to("meta")
+    model.train(grad)
+    ra = _meta_maps()
+    with _counting(monkeypatch) as calls, torch.set_grad_enabled(grad), \
+            attention.meta_stands_for_card():
+        heat, _ = model.pose_from_maps(ra, ra)
+    assert len(calls) == want
+    assert heat.shape[0] == 32
+    if want:
+        assert sorted(set(calls)) == sorted(
+            ((32, *s[1:]), (c, s[1], 3, 3, 3)) for s, c, _ in ENCODER_CONVS)
+
+
+@pytest.fixture(scope="module")
+def smoke():
+    repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(repo, "chip_smoke.py"))
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def _flagship_convs(monkeypatch):
+    model = HuPRNet(num_filters=32, heatmap_size=64,
+                    attn_impl="pallas").to("meta").eval()
+    ra = _meta_maps()
+    with _counting(monkeypatch) as calls, torch.inference_mode(), \
+            attention.meta_stands_for_card():
+        model.pose_from_maps(ra, ra)
+    return calls
+
+
+def test_smoke_conv_table_is_the_request_convs(monkeypatch, smoke):
+    """chip_smoke.CONV_SHAPES, which weights the card's per-shape times
+    into a request's and sets the launch counts it holds, lists each conv a
+    served float32 request sends to the op, as often as it sends it."""
+    seen = collections.Counter(
+        (x[1:], w[0]) for x, w in _flagship_convs(monkeypatch))
+    table = {(s, cout): n for s, cout, _, n in smoke.CONV_SHAPES}
+    assert seen == table
+    assert smoke.CONV_PER_FORWARD == 32
+    assert [smoke.conv_per_forward(b) for b in (1, 4, 8, 32)] == \
+        [8, 20, 32, 32]
+    assert smoke.conv_launches_want(12 * 8, "f32") == 32 * 8
+    assert smoke.conv_launches_want(12 * 8, "bf16") == 0
+
+
+def test_smoke_plain_convs_keeps_every_conv_off_the_op(monkeypatch, smoke):
+    """Inside chip_smoke.plain_convs, the plain route of its serving
+    comparison, blocks.Conv3d sends no conv to the op; after it, the rule
+    is back."""
+    with smoke.plain_convs():
+        assert _flagship_convs(monkeypatch) == []
+    monkeypatch.undo()
+    assert len(_flagship_convs(monkeypatch)) == 32
+
+
+def test_encoder3d_counts_its_convs(monkeypatch):
+    """One Encoder3D: 16 3x3x3 convs (the stem, with bias, and one
+    BasicBlock of three at the first stage; two BasicBlocks at each of the
+    other two)."""
+    enc = Encoder3D(32, 8).to("meta").eval()
+    with _counting(monkeypatch) as calls, torch.inference_mode(), \
+            attention.meta_stands_for_card():
+        enc(torch.empty((8, 32, 8, 64, 64), device="meta"))
+    assert len(calls) == 16
+
+
+# -------------------------------------------- the op's CPU and fake kernels
+
+@pytest.mark.parametrize("b", [1, 2])
+@pytest.mark.parametrize("shape,cout,_", ENCODER_CONVS,
+                         ids=[f"{s[1]}to{c}" for s, c, _ in ENCODER_CONVS])
+def test_op_cpu_kernel_is_conv3d(shape, cout, _, b):
+    """At every Encoder3D shape, with and without bias: the op's CPU kernel
+    equals F.conv3d bit for bit and counts no launch; its fake kernel
+    gives the output's shape and dtype."""
+    x, w, bias = _draw((b, *shape[1:]), cout, True)
+    before = conv.conv3d_3x3x3.launches
+    for bb in (bias, None):
+        got = conv.conv3d_3x3x3(x, w, bb)
+        assert torch.equal(got, F.conv3d(x, w, bb, padding=1))
+        with FakeTensorMode() as mode:
+            fx, fw = mode.from_tensor(x), mode.from_tensor(w)
+            fb = None if bb is None else mode.from_tensor(bb)
+            out = torch.ops.hupr_tpu_torch.conv3d_3x3x3(fx, fw, fb)
+        assert out.shape == got.shape and out.dtype == torch.float32
+    assert conv.conv3d_3x3x3.launches == before
+
+
+def test_op_opcheck():
+    """torch.library.opcheck on the CPU: schema, fake kernel, AOT
+    dispatch, with and without bias."""
+    x, w, b = _draw((1, 8, 2, 3, 8), 64, True)
+    torch.library.opcheck(torch.ops.hupr_tpu_torch.conv3d_3x3x3, (x, w, b))
+    torch.library.opcheck(torch.ops.hupr_tpu_torch.conv3d_3x3x3,
+                          (x, w, None))
+
+
+@pytest.mark.parametrize("bad,match", [
+    (lambda x, w, b: (x.to(torch.bfloat16), w.to(torch.bfloat16), b),
+     "float32"),
+    (lambda x, w, b: (x.transpose(3, 4), w, b), "contiguous"),
+    (lambda x, w, b: (x[:, :4].contiguous(), w[:, :4].contiguous(), b),
+     "multiple of 8"),
+    (lambda x, w, b: (x, w[:32].contiguous(), b[:32]), "multiple of 64"),
+    (lambda x, w, b: (x, w, b[:8]), "bias"),
+])
+def test_fake_kernel_refuses_what_the_card_refuses(bad, match):
+    """On meta tensors standing for the card's, the fake kernel holds the
+    inputs to what the CUDA kernel takes; outside meta_stands_for_card a
+    meta tensor is refused."""
+    x, w, b = (t.to("meta") for t in _draw((1, 8, 2, 3, 8), 64, True))
+    with attention.meta_stands_for_card():
+        assert conv.conv3d_3x3x3(x, w, b).shape == (1, 64, 2, 3, 8)
+        with pytest.raises((TypeError, ValueError), match=match):
+            conv.conv3d_3x3x3(*bad(x, w, b))
+    with pytest.raises(ValueError, match="not meta"):
+        conv.conv3d_3x3x3(x, w, b)
+
+
+def test_op_refuses_a_graph():
+    """Forward only: with autograd recording and an input that requires
+    grad, the wrapper raises."""
+    x, w, b = _draw((1, 8, 2, 3, 8), 64, True)
+    with pytest.raises(RuntimeError, match="forward-only"):
+        conv.conv3d_3x3x3(x, w.requires_grad_(True), b)
+
+
+# ----------------------------------------- the card kernel's arithmetic
+
+def _tf32_bits(x: torch.Tensor, round_nearest: bool) -> torch.Tensor:
+    """x cut to tf32's 10-bit mantissa: rounded to nearest, ties away
+    (tf32.cuh's split), or truncated (the tensor core reading a float32
+    operand)."""
+    bits = x.view(torch.int32)
+    if round_nearest:
+        bits = bits + 0x1000
+    return (bits & -0x2000).view(torch.float32)
+
+
+def conv_3xtf32(x, w, b=None):
+    """The kernel's products in torch: x and w split into hi = rna(v) and
+    lo = v - hi (the tensor core reads lo's tf32 bits), the three terms
+    w_lo.x_hi, w_hi.x_lo and w_hi.x_hi each an exact float32 convolution of
+    tf32 values, summed in float32 small terms first, w_lo.x_lo dropped."""
+    xh, wh = _tf32_bits(x, True), _tf32_bits(w, True)
+    xl, wl = _tf32_bits(x - xh, False), _tf32_bits(w - wh, False)
+    out = F.conv3d(xh, wl, padding=1) + F.conv3d(xl, wh, padding=1)
+    out = out + F.conv3d(xh, wh, padding=1)
+    return out if b is None else out + b[None, :, None, None, None]
+
+
+def conv_1xtf32(x, w, b=None):
+    """A planted fault: one TF32 product (operands rounded to tf32)."""
+    return F.conv3d(_tf32_bits(x, True), _tf32_bits(w, True), b, padding=1)
+
+
+def _rel_err(got, ref64) -> float:
+    return ((got.double() - ref64).abs().max()
+            / ref64.abs().max()).item()
+
+
+# the Encoder3D's channel counts at each width, the spatial extent cut
+@pytest.mark.parametrize("shape,cout", [((1, 32, 4, 8, 64), 64),
+                                        ((1, 64, 4, 8, 64), 64),
+                                        ((1, 128, 2, 8, 32), 128),
+                                        ((1, 256, 2, 8, 16), 256)])
+def test_3xtf32_model_within_the_card_bar_and_1xtf32_over_it(shape, cout):
+    """The 3xTF32 model reads under conv.REL_TOL of a float64 convolution
+    (max |error| over max |reference|), by an order of magnitude; one TF32
+    product reads over it."""
+    x, w, b = _draw(shape, cout, True, seed=shape[1])
+    ref = F.conv3d(x.double(), w.double(), b.double(), padding=1)
+    three = _rel_err(conv_3xtf32(x, w, b), ref)
+    one = _rel_err(conv_1xtf32(x, w, b), ref)
+    assert three < conv.REL_TOL / 10
+    assert one > conv.REL_TOL

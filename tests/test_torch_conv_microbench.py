@@ -1,7 +1,8 @@
 """The port's convolution microbenchmark (hupr_tpu_torch/scripts/
 conv_microbench.py) on the CPU at a tiny shape: each form of the 3x3x3
-SAME convolution against jax.lax.conv_general_dilated on the same numpy
-input, the agreement bars, and the script's argv and output."""
+SAME convolution (the port's own kernel form in float32 too) against
+jax.lax.conv_general_dilated on the same numpy input, the agreement bars,
+and the script's argv and output."""
 
 import re
 
@@ -26,12 +27,12 @@ def _jax_conv(x, w):
         dimension_numbers=dn))
 
 
-@pytest.mark.parametrize("form", list(cm.FORMS))
+@pytest.mark.parametrize("form", list(cm.F32_FORMS))
 def test_form_equals_jax_conv(form):
     """float32: within 1e-4 of XLA's convolution, after the NDHWC <->
     NCDHW transposes."""
     x, w = cm.inputs(*TINY)
-    op, layout = cm.FORMS[form]
+    op, layout = cm.F32_FORMS[form]
     with cm.float32_math():
         got = cm.to_ndhwc(op(*cm.operands(x, w, layout, "cpu",
                                           torch.float32)), layout)
@@ -79,9 +80,11 @@ def test_script_on_cpu_prints_each_form_and_dtype(capsys):
     assert lines[0].startswith("conv3d 3x3x3 SAME at (B, T, H, W, C) = "
                                "(1, 2, 8, 8, 4)")
     assert [(r["form"], r["dtype"]) for r in rows] == [
-        (f, d) for d in ("float32", "bfloat16") for f in cm.FORMS]
+        (f, "float32") for f in cm.F32_FORMS] + [
+        (f, "bfloat16") for f in cm.FORMS]
     for row, line in zip(rows, lines[1:]):
-        assert re.fullmatch(r"(native|shift|im2col) +(float32|bfloat16) +"
+        assert re.fullmatch(r"(native|shift|im2col|kernel) +(float32|bfloat16)"
+                            r" +"
                             r"\d+\.\d{3} ms", line), line
         assert row["ms"] > 0
     assert all(r["max_abs_err_vs_native"] < 1e-2 for r in rows)

@@ -741,10 +741,10 @@ def test_entry_on_card(cuda):
         assert (g - w).abs().max().item() <= 1e-4
 
 
-def _small_request():
+def _small_request(frames: int = 8):
     """make_e2e_infer at the kernels' widths (numFilters 32) on 32x32 maps
-    from a reduced capture, and an 8-frame request of int16 planes on the
-    host."""
+    from a reduced capture, and a request of `frames` frames of int16
+    planes on the host."""
     import numpy as np
 
     from hupr_tpu_torch.engine.pipeline import make_e2e_infer
@@ -757,9 +757,9 @@ def _small_request():
     model = HuPRNet(num_filters=32, heatmap_size=32, attn_impl="pallas")
     state = synthetic_state_dict(model, seed=0, scale=0.03)
     rng = np.random.default_rng(2)
-    planes = [rng.integers(-300, 300, (8, 4, 48, 128)).astype(np.int16)
+    planes = [rng.integers(-300, 300, (frames, 4, 48, 128)).astype(np.int16)
               for _ in range(4)]
-    return make_e2e_infer(model, state, rp, duration=8), planes
+    return make_e2e_infer(model, state, rp, duration=frames), planes
 
 
 def test_encoder3d_span_times_its_work_on_the_card(cuda):
@@ -848,3 +848,151 @@ def test_spans_stay_off_the_cards_kernels(cuda, monkeypatch):
                                if k[0].startswith("hupr.")]
     assert not [k for k, _ in on.device_ops if k.startswith("hupr.")]
     assert on.host_launches == off.host_launches > 0
+
+
+# ----------------------------- the float32 3x3x3 convolution (ops/conv.py)
+
+_ENCODER_CONVS = [((32, 8, 64, 64), 64, True), ((64, 8, 64, 64), 64, False),
+                  ((64, 4, 32, 32), 128, False),
+                  ((128, 4, 32, 32), 128, False),
+                  ((128, 2, 16, 16), 256, False),
+                  ((256, 2, 16, 16), 256, False)]
+_CONV_CASES = [((b, *s), c, bias) for b in (32, 1)
+               for s, c, bias in _ENCODER_CONVS] + [
+    # ragged: depths and rows no multiple of a block's tile, W = 8
+    ((3, 16, 5, 7, 8), 64, True), ((1, 8, 3, 9, 16), 128, False),
+    ((2, 24, 3, 5, 32), 192, True), ((1, 32, 1, 1, 64), 64, False)]
+
+
+@pytest.mark.parametrize("shape,cout,bias", _CONV_CASES,
+                         ids=[f"{s}-{c}" for s, c, _ in _CONV_CASES])
+def test_conv3d_kernel_matches_conv3d(cuda, shape, cout, bias):
+    """csrc/conv3d_fprop.cu at each Encoder3D shape at B = 32 and 1, and at
+    ragged ones: within conv.REL_TOL (max |error| over max |reference|) of
+    F.conv3d in float32 with TF32 off and of the float64 convolution; the
+    same bits on a second call; one launch a call."""
+    import torch.nn.functional as F
+
+    from hupr_tpu_torch.ops import conv
+
+    gen = torch.Generator(device=cuda).manual_seed(shape[1] + cout)
+    x = torch.randn(shape, device=cuda, generator=gen)
+    w = torch.randn((cout, shape[1], 3, 3, 3), device=cuda,
+                    generator=gen) / (27 * shape[1]) ** 0.5
+    b = torch.randn((cout,), device=cuda, generator=gen) if bias else None
+    before = conv.conv3d_3x3x3.launches
+    with torch.inference_mode():
+        got = conv.conv3d_3x3x3(x, w, b)
+        again = conv.conv3d_3x3x3(x, w, b)
+        ref = F.conv3d(x, w, b, padding=1)
+        ref64 = F.conv3d(x.double(), w.double(),
+                         None if b is None else b.double(), padding=1)
+    torch.cuda.synchronize()
+    assert conv.conv3d_3x3x3.launches - before == 2
+    assert torch.equal(got, again)
+    scale = ref64.abs().max().item()
+    assert (got - ref).abs().max().item() <= conv.REL_TOL * scale
+    assert (got.double() - ref64).abs().max().item() <= conv.REL_TOL * scale
+
+
+def _conv_launches(fn) -> tuple:
+    """(kernel launches, hupr.conv3d_tf32x3 count) over one profiled call
+    of `fn`."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from hupr_tpu_torch.ops import conv
+    from hupr_tpu_torch.utils import profiling
+
+    conv.reset_launch_counts()
+    profiling.reset()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        fn()
+        torch.cuda.synchronize()
+    counted = profiling.table()["counters"].get("hupr.conv3d_tf32x3", 0)
+    profiling.reset()
+    return conv.conv3d_3x3x3.launches, counted
+
+
+def test_conv3d_kernel_carries_each_encoder_conv_of_a_request(cuda):
+    """One served float32 request (make_e2e_infer) of 16 frames, whose
+    windows give every conv a grid of conv.MIN_BLOCKS or more: the kernel
+    launches once for each 3x3x3 conv of the two Encoder3Ds, 2 x 16, and
+    the counter hupr.conv3d_tf32x3 counts them. At 8 frames the 8x8 maps'
+    convs (32 blocks) stay on cuDNN: 2 x 10."""
+    for frames, want in ((16, 32), (8, 20)):
+        run, planes = _small_request(frames)
+        run(*planes)
+        assert _conv_launches(lambda: run(*planes)) == (want, want)
+
+
+def test_conv3d_kernel_stays_off_training_and_bfloat16(cuda):
+    """A float32 train step (autograd records every conv) and a bfloat16
+    request launch no conv kernel."""
+    import numpy as np
+
+    from hupr_tpu_torch.config import config_from_dict
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                             make_train_step)
+    from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops.dsp import RadarParams
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    h, b = 16, 2
+    rng = np.random.default_rng(0)
+    shape = (b, 8, 8, 2, h, h, 8)
+    batch = {"hori": rng.standard_normal(shape).astype(np.float32),
+             "vert": rng.standard_normal(shape).astype(np.float32),
+             "jointsGroup": rng.uniform(4, 4 * h - 4, (b, 14, 2))}
+    model = HuPRNet(num_filters=32, heatmap_size=h,
+                    attn_impl="pallas").to(cuda)
+    model.load_state_dict(synthetic_state_dict(model, seed=0, scale=0.03))
+    tx = make_optimizer(config_from_dict({}), model)
+    state = TrainState(model, tx)
+    step = make_train_step(model, tx, -1.0, (14, h, 4 * h))
+    assert _conv_launches(lambda: step(state, batch, 1e-4, 0.0)) == (0, 0)
+
+    rp = RadarParams(num_adc_samples=128, num_chirp=48, idx_proc_chirp=16,
+                     num_group_chirp=2)
+    bf16 = HuPRNet(num_filters=32, heatmap_size=32, attn_impl="pallas",
+                   compute_dtype=torch.bfloat16)
+    run = make_e2e_infer(bf16, synthetic_state_dict(bf16, seed=0,
+                                                    scale=0.03), rp,
+                         duration=8)
+    planes = [rng.integers(-300, 300, (8, 4, 48, 128)).astype(np.int16)
+              for _ in range(4)]
+    run(*planes)
+    assert _conv_launches(lambda: run(*planes)) == (0, 0)
+
+
+def test_exported_f32_artifact_equals_live_serving_bit_for_bit(cuda,
+                                                               tmp_path):
+    """An artifact exported on the CPU holds the conv op, and loaded onto
+    the card serves what make_e2e_infer serves, bit for bit: the same
+    kernels, 32 conv launches a 16-frame request."""
+    import numpy as np
+
+    from hupr_tpu_torch.engine import export
+    from hupr_tpu_torch.engine.pipeline import make_e2e_infer
+    from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops import conv
+    from hupr_tpu_torch.ops.dsp import RadarParams
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    rp = RadarParams(num_adc_samples=128, num_chirp=48, idx_proc_chirp=16,
+                     num_group_chirp=2)
+    model = HuPRNet(num_filters=32, heatmap_size=32, attn_impl="pallas")
+    state = synthetic_state_dict(model, seed=0, scale=0.03)
+    path = str(tmp_path / "serving.pt2")
+    export.save_artifact(path, export.export_serving(model, state, rp,
+                                                     frames=16))
+    serve = export.load_artifact(path)
+    rng = np.random.default_rng(5)
+    frames = [rng.integers(-300, 300, (16, 4, 48, 128)).astype(np.int16)
+              for _ in range(4)]
+    live = make_e2e_infer(model, None, rp, duration=16)(*frames)
+    conv.reset_launch_counts()
+    pred, maxv = serve(*frames)
+    torch.cuda.synchronize()
+    assert conv.conv3d_3x3x3.launches == 32
+    assert torch.equal(maxv, live[1]) and torch.equal(pred, live[0])
