@@ -16,7 +16,12 @@
    the library call that computes the same function. The float32 conv
    kernel (conv3d_fprop) at each Encoder3D shape at B=32 and B=1, within
    ops/conv.REL_TOL of F.conv3d in float32 (TF32 off) and in float64; its
-   plain version is the library's call, F.conv3d (cuDNN).
+   plain version is the library's call, F.conv3d (cuDNN). The conv's
+   gradients at each Encoder3D shape at B=5 and B=20 (data parallel
+   training's rows a card, the flagship batch): the weight gradient
+   (conv3d_wgrad) and the input gradient through conv3d_fprop, within
+   ops/conv.REL_TOL of float64, cuDNN's float32 error beside them, timed
+   against cuDNN's.
 4. Serves requests of 32 raw int16 ADC frames per radar view through
    make_e2e_infer at the flagship width (config/mscsa_prgcn_tpu.yaml:
    numFilters 32, 64x64 maps, 8-frame windows, MODEL.attention pallas),
@@ -27,12 +32,14 @@
    (plain_convs). The stream, export and shard phases and the train steps
    count the conv kernel's launches too: 32 to each 12 attention launches
    of a float32 forward at B >= 8 (8 at the stream's B = 1, where the
-   deeper convs' grids stay on cuDNN: conv.MIN_BLOCKS), none in bfloat16
-   or where a gradient is needed.
+   deeper convs' grids stay on cuDNN: conv.MIN_BLOCKS), none in bfloat16;
+   a float32 train step at batch 20 launches conv3d_fprop 62 times (32
+   forwards, 30 input gradients) and conv3d_wgrad 32 times.
 5. Trains the flagship recipe (batch 20, Adam at lr 1e-4) for a few steps
    of bench.py's synthetic batch, driven as Runner.train drives its train
    step, through the kernels and, from the same weights, through the plain
-   attention; checks the launch counts, finite losses, and that the first
+   attention and cuDNN's convolutions (plain_convs); checks the launch
+   counts, finite losses, and that the first
    step's gradients of the attention projections, the losses, the weights
    and the BN statistics agree between the two; profiles one step of each.
 6. The bfloat16 modes of both kernels (bfloat16 inputs; bfloat16 operands
@@ -167,7 +174,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 # hupr_tpu_torch/csrc/*.cu
 KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_unfolded",
-           "conv3d_fprop")
+           "conv3d_fprop", "conv3d_wgrad")
 REQUESTS = 8            # timed requests of the serving slice
 FRAMES = 32             # raw frames per request and radar view (bench.py)
 ATTN_BATCH = 32         # windows per request = the attention's batch
@@ -527,39 +534,132 @@ def check_conv(torch, peaks):
     return rows
 
 
+def check_conv_grads(torch, peaks):
+    """The float32 conv's gradients at each Encoder3D shape at B=5 and
+    B=TRAIN_BATCH: the weight gradient (csrc/conv3d_wgrad.cu) and, where
+    conv.dgrad_takes, the input gradient through the forward kernel on dY
+    with conv.dgrad_weight, each within conv.REL_TOL of float64 (max |error|
+    over max |reference|) with cuDNN's float32 error beside it, the weight
+    gradient bit-identical on a second call; timed beside cuDNN's (aten's
+    convolution_backward, TF32 off: the plain version and the library
+    call). The bound is the larger of the 3xTF32 products and the bytes of
+    the two inputs and the output. Returns per-shape rows."""
+    from hupr_tpu_torch.ops import conv
+    from hupr_tpu_torch.utils.device import float32_math
+
+    def cudnn(dy, x, wt, mask):
+        return torch.ops.aten.convolution_backward(
+            dy, x, wt, None, [1] * 3, [1] * 3, [1] * 3, False, [0] * 3, 1,
+            mask)
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    rows = []
+    for b in (5, TRAIN_BATCH):
+        for (cin, d, h, w), cout, _, per in CONV_SHAPES:
+            shape = (b, cin, d, h, w)
+            x = torch.randn(shape, generator=gen, device="cuda")
+            dy = torch.randn((b, cout, d, h, w), generator=gen, device="cuda")
+            wt = torch.randn((cout, cin, 3, 3, 3), generator=gen,
+                             device="cuda") / math.sqrt(27 * cin)
+            passes = [("conv3d_wgrad", 1, lambda: conv.conv3d_wgrad(x, dy),
+                       x)]
+            if conv.dgrad_takes(shape, cout):
+                passes.append(("conv3d_dgrad", 0, lambda: conv.conv3d_3x3x3(
+                    dy, conv.dgrad_weight(wt)), dy))
+            for name, which, kernel, src in passes:
+                mask = [which == 0, which == 1, False]
+                with torch.no_grad(), float32_math():
+                    got, again = kernel(), kernel()
+                    want = cudnn(dy, x, wt, mask)[which]
+                    want64 = cudnn(dy.double(), x.double(), wt.double(),
+                                   mask)[which]
+                    scale = want64.abs().max().item()
+                    row = {"kernel": name, "mode": "f32", "B": b, "Cin": cin,
+                           "DHW": [d, h, w], "Cout": cout, "per_step": per,
+                           "max_abs_err": (got.double() - want64).abs().max()
+                           .item(),
+                           "rel_err_vs_f64": (got.double() - want64).abs()
+                           .max().item() / scale,
+                           "cudnn_rel_err_vs_f64": (want.double() - want64)
+                           .abs().max().item() / scale,
+                           "repeats_bit_for_bit": torch.equal(got, again)}
+                    del again, want, want64
+                    row["kernel_ms"] = cuda_ms(torch, kernel, 10)
+                    row["plain_ms"] = cuda_ms(torch, lambda: cudnn(
+                        dy, x, wt, mask), 10)
+                row["library_ms"] = row["plain_ms"]
+                flops = 2 * b * d * h * w * cout * 27 * cin
+                nbytes = 4 * (x.numel() + dy.numel() + wt.numel())
+                ops_s = flops * product_route("f32", "f32", peaks)[1]
+                bytes_s = nbytes / peaks["bytes"]
+                row["bound_ms"] = 1e3 * max(ops_s, bytes_s)
+                row["bound_by"] = "operations" if ops_s >= bytes_s \
+                    else "bytes"
+                row["tflops"] = flops / row["kernel_ms"] / 1e9
+                print(json.dumps(row), flush=True)
+                if not row["rel_err_vs_f64"] <= conv.REL_TOL:
+                    raise AssertionError(f"{name} at {shape} -> {cout}: "
+                                         f"{row}, bar {conv.REL_TOL}")
+                if not row["repeats_bit_for_bit"]:
+                    raise AssertionError(f"{name} at {shape} -> {cout}: two "
+                                         f"calls gave different bits")
+                rows.append(row)
+                del got
+            del x, dy, wt, passes
+    return rows
+
+
+def conv_train_launches(batch: int = TRAIN_BATCH) -> tuple:
+    """(conv3d_fprop, conv3d_wgrad) launches of a float32 train step at
+    `batch` windows: each conv of CONV_SHAPES whose forward the kernel
+    takes (conv.routes) launches it once, and once more for its input
+    gradient where conv.dgrad_takes, and conv3d_wgrad for its weight
+    gradient where conv.wgrad_takes."""
+    from hupr_tpu_torch.ops import conv
+
+    fprop = wgrad = 0
+    for (cin, d, h, w), cout, _, n in CONV_SHAPES:
+        r = conv.routes((batch, cin, d, h, w), cout)
+        if r["fprop"]:
+            fprop += n * (1 + r["dgrad"])
+            wgrad += n * r["wgrad"]
+    return fprop, wgrad
+
+
 @contextlib.contextmanager
 def plain_convs():
     """Within the body models/blocks.Conv3d sends every conv to F.conv3d
-    (cuDNN), as it does where conv.takes_kernel refuses one: the plain
-    route of a comparison."""
+    (cuDNN), as it does where conv.takes_kernel and conv.takes_window
+    refuse one: the plain route of a comparison."""
     from hupr_tpu_torch.ops import conv
 
-    takes = conv.takes_kernel
-    conv.takes_kernel = lambda *args, **kwargs: False
+    takes = conv.takes_kernel, conv.takes_window
+    conv.takes_kernel = conv.takes_window = lambda *args, **kwargs: False
     try:
         yield
     finally:
-        conv.takes_kernel = takes
+        conv.takes_kernel, conv.takes_window = takes
 
 
-def conv_per_forward(batch: int) -> int:
+def conv_per_forward(batch: int, spatial: int = 64) -> int:
     """conv3d_fprop's launches in a float32 forward without gradients at
-    `batch` windows: the convs of CONV_SHAPES whose grid conv.takes_kernel
-    takes."""
+    `batch` windows of spatial x spatial maps: the convs of CONV_SHAPES
+    (at 64x64), their maps scaled, whose grid conv.takes_kernel takes."""
     from hupr_tpu_torch.ops import conv
 
     return sum(n for (cin, d, h, w), cout, _, n in CONV_SHAPES
-               if conv.grid_blocks((batch, cin, d, h, w), cout)
+               if conv.grid_blocks((batch, cin, d, h * spatial // 64,
+                                    w * spatial // 64), cout)
                >= conv.MIN_BLOCKS)
 
 
 def conv_launches_want(attention_launches: int, mode: str,
-                       batch: int = ATTN_BATCH) -> int:
+                       batch: int = ATTN_BATCH, spatial: int = 64) -> int:
     """conv3d_fprop's launches beside `attention_launches` forward
-    attention launches of forwards without gradients at `batch` windows:
-    conv_per_forward(batch) to each 12 in float32 (mode f32), none in
-    bfloat16."""
-    return conv_per_forward(batch) * attention_launches // 12 \
+    attention launches of forwards without gradients at `batch` windows of
+    spatial x spatial maps: conv_per_forward(batch, spatial) to each 12 in
+    float32 (mode f32), none in bfloat16."""
+    return conv_per_forward(batch, spatial) * attention_launches // 12 \
         if mode == "f32" else 0
 
 
@@ -1078,7 +1178,8 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
                 mode: str = "f32"):
     """The training step of `make_cfg()` (the flagship recipe by default)
     through the kernels in `mode` and, from the same weights, through the
-    eager attention in the same compute dtype, on bench.py's batch: the
+    eager attention and cuDNN's convolutions (plain_convs) in the same
+    compute dtype, on bench.py's batch: the
     projections' gradients and every weight at the first step, then the
     losses, the weights (but the first step's branch flips, which are
     counted: see PARAM_ATOL) and BN statistics after the timed steps, at
@@ -1114,20 +1215,25 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
         paths[name] = {"state": TrainState(model, tx),
                        "step": make_train_step(model, tx, t.lossDecay,
                                                geometry),
+                       # the plain route: cuDNN's convs as well
+                       "convs": plain_convs if name == "xla"
+                       else contextlib.nullcontext,
                        "lr": t.lr, "alpha": 0.0, "idx": 0, "losses": []}
 
     def drive(p, steps):
         """Runner.train's loop body: alpha advanced before the step, the lr
         adjusted after every lrDecayIter-th step (idx 0 included)."""
-        for _ in range(steps):
-            if p["alpha"] < 1.0:
-                p["alpha"] += t.lossDecay
-            p["state"], metrics = p["step"](p["state"], batch, p["lr"],
-                                            p["alpha"])
-            p["losses"].append(metrics["loss"])
-            if p["idx"] % t.lrDecayIter == 0:     # Runner.adjust_lr, epoch 0
-                p["lr"] *= t.warmupGrowth if 0 < t.warmupEpoch else t.lrDecay
-            p["idx"] += 1
+        with p["convs"]():
+            for _ in range(steps):
+                if p["alpha"] < 1.0:
+                    p["alpha"] += t.lossDecay
+                p["state"], metrics = p["step"](p["state"], batch, p["lr"],
+                                                p["alpha"])
+                p["losses"].append(metrics["loss"])
+                if p["idx"] % t.lrDecayIter == 0:  # Runner.adjust_lr, epoch 0
+                    p["lr"] *= (t.warmupGrowth if 0 < t.warmupEpoch
+                                else t.lrDecay)
+                p["idx"] += 1
 
     def flat_params(p):
         return torch.cat([v.detach().flatten()
@@ -1166,6 +1272,7 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
             "launches": (attention.attention_fwd.launches,
                          attention.attention_bwd.launches),
             "conv_launches": conv.conv3d_3x3x3.launches,
+            "wgrad_launches": conv.conv3d_wgrad.launches,
             "by_mode": (dict(attention.attention_fwd.launches_by_mode),
                         dict(attention.attention_bwd.launches_by_mode)),
             "max_memory_allocated": torch.cuda.max_memory_allocated()}
@@ -1178,11 +1285,15 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
                              f"times through the kernels and "
                              f"{timing['xla']['launches']} through the plain "
                              f"attention; expected {want} each and (0, 0)")
-    conv_launches = [t["conv_launches"] for t in timing.values()]
-    if conv_launches != [0, 0]:
-        raise AssertionError(f"train steps launched conv3d_fprop "
-                             f"{conv_launches} times; a conv whose gradient "
-                             f"is needed stays on cuDNN")
+    conv_launches = [(t["conv_launches"], t["wgrad_launches"])
+                     for t in timing.values()]
+    fprop, wgrad = conv_train_launches() if mode == "f32" else (0, 0)
+    conv_want = [(TRAIN_STEPS * fprop, TRAIN_STEPS * wgrad), (0, 0)]
+    if conv_launches != conv_want:
+        raise AssertionError(f"train steps launched (conv3d_fprop, "
+                             f"conv3d_wgrad) {conv_launches} times through "
+                             f"the kernels and the plain route, expected "
+                             f"{conv_want}")
     losses = {name: [x.item() for x in p["losses"]]
               for name, p in paths.items()}
     if not all(map(math.isfinite, losses["pallas"] + losses["xla"])):
@@ -1230,6 +1341,7 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
               "attention_fwd_launches": timing["pallas"]["launches"][0],
               "attention_bwd_launches": timing["pallas"]["launches"][1],
               "conv_launches": timing["pallas"]["conv_launches"],
+              "wgrad_launches": timing["pallas"]["wgrad_launches"],
               "launches_by_mode": timing["pallas"]["by_mode"],
               "max_memory_allocated": timing["pallas"]["max_memory_allocated"],
               "max_memory_allocated_xla":
@@ -3923,9 +4035,10 @@ def shard_holds(torch, card: str, ranks: list, modes, spatial: int,
             failed.append(f"{mode} launches {launches}, small {small}")
         # each rank serves its share of the frames: one window a frame
         conv_want = (conv_launches_want(12 * SHARD_REQUESTS, mode,
-                                        FRAMES // SHARD_WORLD),
+                                        FRAMES // SHARD_WORLD, spatial),
                      conv_launches_want(12, mode,
-                                        SHARD_SMALL[0] // SHARD_WORLD))
+                                        SHARD_SMALL[0] // SHARD_WORLD,
+                                        spatial))
         if any((r["conv_launches"], r["small_conv_launches"]) != conv_want
                for r in per_rank):
             failed.append(f"{mode} conv launches "
@@ -4371,6 +4484,7 @@ def main() -> int:
 
     rows = check_attention(torch, peaks)
     conv_rows = check_conv(torch, peaks)
+    grad_rows = check_conv_grads(torch, peaks)
     bwd_rows = check_attention_bwd(torch, peaks)
     mode_rows = check_attention_modes(torch, peaks)
     b1_rows = check_attention_b1(torch, peaks)
@@ -4571,6 +4685,18 @@ def main() -> int:
         entries.append(kernel_entry(
             f"attention_bwd_{mode}", mode, "attention_bwd", bwd_src,
             bwd_launches, [r["bwd_B20"] for r in mine], 4, per_step))
+    def per_step_rows(kernel, b):
+        """The gradient rows of `kernel` at batch b, each taken as often as
+        a train step runs its shape."""
+        return [{**r, **{key: r["per_step"] * r[key] for key in
+                         ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}}
+                for r in grad_rows if r["kernel"] == kernel and r["B"] == b]
+
+    def grad_sums(kernel, b):
+        rows = per_step_rows(kernel, b)
+        return {key: sum(r[key] for r in rows) for key in
+                ("kernel_ms", "plain_ms", "library_ms", "bound_ms")}
+
     # a forward's convs: each shape's row taken as often as a forward runs it
     per_conv = (f"one request: {CONV_PER_FORWARD} launches, the Encoder3Ds' "
                 f"3x3x3 convs at B={ATTN_BATCH}")
@@ -4605,7 +4731,22 @@ def main() -> int:
         body="conv3d_fprop_tf32<W> (3xTF32 on mma.sync, csrc/tf32.cuh)",
         rel_err=max(r["rel_err"] for r in conv_rows),
         rel_err_vs_f64=max(r["rel_err_vs_f64"] for r in conv_rows),
-        library="F.conv3d (cuDNN, TF32 off), also the plain version"))
+        library="F.conv3d (cuDNN, TF32 off), also the plain version",
+        **{f"dgrad_B{b}": grad_sums("conv3d_dgrad", b) for b in
+           (5, TRAIN_BATCH)}))
+    entries.append(kernel_entry(
+        "conv3d_wgrad", "f32", "conv3d_wgrad", None,
+        {"train": tr["wgrad_launches"], "train_bf16": tr16["wgrad_launches"]},
+        per_step_rows("conv3d_wgrad", TRAIN_BATCH), 1,
+        f"one train step: {conv_train_launches()[1]} launches, the "
+        f"Encoder3Ds' 3x3x3 convs' weight gradients at B={TRAIN_BATCH}",
+        B5=grad_sums("conv3d_wgrad", 5),
+        body="conv3d_wgrad_tf32<W> (3xTF32 on mma.sync, csrc/tf32.cuh), "
+             "the splits added by torch's sum",
+        rel_err_vs_f64=max(r["rel_err_vs_f64"] for r in grad_rows
+                           if r["kernel"] == "conv3d_wgrad"),
+        library="aten convolution_backward (cuDNN, TF32 off), also the plain "
+                "version"))
     micro_src = "scripts/attn_microbench.py:73"
     for mode, suffix, body in (
             ("f32", "", "attention_fwd_unfolded_tf32 (3xTF32 on mma.sync, "

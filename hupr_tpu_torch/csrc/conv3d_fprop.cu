@@ -145,18 +145,6 @@ __device__ __forceinline__ void stage(float* buf, const float* __restrict__ x,
   }
 }
 
-// d = a.b, m16n8k8, tf32 operands, float32 accumulators: the first product
-// of a chain, from zero
-__device__ __forceinline__ void mma_from_zero(float (&d)[4],
-                                              const uint32_t (&a)[4],
-                                              const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
-      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
-        "f"(0.f));
-}
-
 template <int W>
 __global__ void __launch_bounds__(NT, 1)
 conv3d_fprop_tf32(const float* __restrict__ x, const float* __restrict__ wt,
@@ -237,7 +225,7 @@ conv3d_fprop_tf32(const float* __restrict__ x, const float* __restrict__ wt,
 #pragma unroll
           for (int i = 0; i < MI; ++i) {
             if (tap == 0)
-              mma_from_zero(part[i][j], a[i].x[1], f.x[0]);
+              tf32::mma_from_zero(part[i][j], a[i].x[1], f.x[0]);
             else
               tf32::mma(part[i][j], a[i].x[1], f.x[0]);
             tf32::mma(part[i][j], a[i].x[0], f.x[1]);

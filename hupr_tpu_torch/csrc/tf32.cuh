@@ -192,6 +192,18 @@ __device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// d = a.b, m16n8k8, tf32 operands, float32 accumulators: the first product
+// of a chain of sums, from zero
+__device__ __forceinline__ void mma_from_zero(float (&d)[4],
+                                              const uint32_t (&a)[4],
+                                              const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%10, %10, %10, %10};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]),
+        "f"(0.f));
+}
+
 // d[j] += a.b[j] for J n-tiles in 3xTF32: lo.hi, hi.lo, then hi.hi, each
 // term over every n-tile in turn, so that consecutive mma.sync write
 // different accumulators instead of waiting on each other

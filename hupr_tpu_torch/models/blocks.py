@@ -58,10 +58,11 @@ from hupr_tpu_torch.utils import profiling
 class _CastConv:
     """ConvNd whose forward runs in `compute_dtype` (in float32, `.to` hands
     back the same tensors and this is the plain conv). A float32 3x3x3
-    Conv3d whose gradient nobody needs goes to the op
-    hupr_tpu_torch::conv3d_3x3x3 (ops/conv.takes_kernel: the Hopper kernel
-    on the card, F.conv3d itself on the CPU); every other conv is
-    F.conv3d."""
+    Conv3d that ops/conv.takes_kernel takes goes to the op
+    hupr_tpu_torch::conv3d_3x3x3 (the Hopper kernels on the card, forward
+    and gradient; F.conv3d's arithmetic on the CPU), a float32 (k, 1, 1)
+    Conv3d of whole windows that trains on the card to ops/conv.WindowConv
+    (ops/conv.takes_window); every other conv is F.conv3d."""
 
     def __init__(self, *args, compute_dtype: torch.dtype = torch.float32,
                  **kwargs):
@@ -74,6 +75,8 @@ class _CastConv:
         x, weight = x.to(dt), self.weight.to(dt)
         if conv.takes_kernel(self, x, weight, bias):
             return conv.conv3d_3x3x3(x.contiguous(), weight, bias)
+        if conv.takes_window(self, x, weight, bias):
+            return conv.WindowConv.apply(x, weight, bias, self.stride)
         return self._conv_forward(x, weight, bias)
 
 

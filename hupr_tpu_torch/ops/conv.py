@@ -1,5 +1,6 @@
-"""The Encoder3Ds' float32 3x3x3 convolution: the Hopper kernel's wrapper,
-its custom op, its plain version and the rule that sends a conv to it.
+"""The Encoder3Ds' float32 3x3x3 convolution: the Hopper kernels' wrappers,
+the custom op with its gradient, their plain versions and the rules that
+send a conv and each of its passes to them.
 
 `conv3d_3x3x3(x, weight, bias)` is F.conv3d(x, weight, bias, padding=1)
 for a (Cout, Cin, 3, 3, 3) kernel at stride 1, in float32. On the card it
@@ -13,16 +14,32 @@ torch.library custom op, `hupr_tpu_torch::conv3d_3x3x3`, so that
 torch.export keeps it as one node (engine/export.py) and the flagship shape
 pass reaches its fake kernel (attention.meta_stands_for_card).
 
+Its gradient (`_backward`), given the output gradient dY, takes each pass
+where that pass's own rule sends it: dX is the forward kernel run on dY
+with the weight flipped in its three spatial axes and its channel axes
+swapped (`dgrad_takes`), dW the weight-gradient kernel csrc/conv3d_wgrad.cu
+(`conv3d_wgrad`, `wgrad_takes`), db the sum of dY; a pass its rule refuses
+is aten's convolution_backward (cuDNN). Off the card every pass is aten's,
+so the CPU's gradients are F.conv3d's bit for bit.
+
 `takes_kernel` is the rule models/blocks.Conv3d follows, by what the call
 shows and nothing else: a float32 3x3x3 conv at stride 1, padding 1,
-dilation 1, one group, zero padding; whose gradient nobody needs (autograd
-off, as under the inference_mode of serving, streaming and sequence eval,
-or no input that requires grad); at shapes the kernel is built for: Cin a
-multiple of 8, Cout of 64, W in (8, 16, 32, 64); and with a grid of at least
-MIN_BLOCKS blocks. Everything else stays F.conv3d (cuDNN on the card): the
-bfloat16 recipes, the (T, 1, 1) temporal merges, MNet's (2, 1, 1) convs,
-every conv of a train step, and the small grids of the deeper convs at the
-stream's B = 1.
+dilation 1, one group, zero padding; at shapes the kernel is built for: Cin
+a multiple of 8, Cout of 64, W in (8, 16, 32, 64); and with a grid of at
+least MIN_BLOCKS blocks (`fprop_takes`), whether or not its gradient is
+needed. Everything else stays F.conv3d (cuDNN on the card): the bfloat16
+recipes, the (T, 1, 1) temporal merges, MNet's (2, 1, 1) convs, and the
+small grids of the deeper convs at the stream's B = 1 and at data
+parallel training's 5 rows a card.
+
+`takes_window` is a second rule, for training on the card: a float32 conv
+of kernel (k, 1, 1) whose windows along the depth neither overlap nor
+leave a gap (stride k, or one window over the whole depth) and whose
+gradient is needed: MNet's (2, 1, 1) convs at stride 2 and the Encoder3Ds'
+(T, 1, 1) temporal merges. Its forward stays F.conv3d (cuDNN); its
+gradients (`WindowConv`) are one matrix product each over the windows'
+(channel, tap) pairs, where cuDNN's float32 weight gradient for MNet's
+conv took 40 ms a call at batch 20 (its direct kernel at 0.02 TFLOP/s).
 """
 
 from __future__ import annotations
@@ -48,7 +65,11 @@ BLOCK_VOXELS = 256        # output voxels a block: 2 depths x 128 / W rows x W
 # 0.206 ms (Cin 64, 128) against 0.183 and 0.144; 8 blocks (Cin 128, 256)
 # 0.206 and 0.408 ms against 0.081 and 0.158
 MIN_BLOCKS = 64
+# Waves of one block an SM that the weight-gradient kernel's grid aims at,
+# so that the last wave's idle SMs cost little (wgrad_split)
+WGRAD_WAVES = 4
 COUNTER = "hupr.conv3d_tf32x3"
+WGRAD_COUNTER = "hupr.conv3d_wgrad_tf32x3"
 # The card tests' bar: max |kernel - reference| over max |reference|, the
 # reference F.conv3d in float64 or in float32 with TF32 off. A torch model of
 # the kernel's 3xTF32 products reads at least ten times under it, one TF32
@@ -83,6 +104,58 @@ def grid_blocks(x_shape, cout: int) -> int:
     return b * -(-d // 2) * -(-h // rows) * (cout // COUT_MULTIPLE)
 
 
+def fprop_takes(x_shape, cout: int) -> bool:
+    """Whether the forward kernel takes input (B, Cin, D, H, W) to `cout`
+    channels: shapes it is built for, a grid of MIN_BLOCKS or more."""
+    return (_shape_fits(x_shape, (cout, x_shape[1], 3, 3, 3))
+            and grid_blocks(x_shape, cout) >= MIN_BLOCKS)
+
+
+def dgrad_takes(x_shape, cout: int) -> bool:
+    """Whether the input gradient of that conv goes to the forward kernel:
+    run on the output gradient (B, cout, D, H, W) to Cin channels, so Cin
+    has to be a multiple of COUT_MULTIPLE (not the Encoder3D's first conv,
+    32 -> 64)."""
+    return fprop_takes((x_shape[0], cout, *x_shape[2:]), x_shape[1])
+
+
+def wgrad_split(x_shape, cout: int, sms: int) -> tuple:
+    """(tiles a block, splits) of the weight-gradient kernel for input (B,
+    Cin, D, H, W) and `cout` channels on a card of `sms` SMs: its grid has a
+    block for each chunk of 64 output and 8 input channels in each split of
+    the voxel tiles (grid_blocks' tiles of 2 depths x BLOCK_VOXELS / (2 W)
+    rows), and the splits are as many as bring the grid to about
+    WGRAD_WAVES x `sms` blocks."""
+    tiles = grid_blocks(x_shape, COUT_MULTIPLE)
+    chunks = x_shape[1] // CIN_MULTIPLE * (cout // COUT_MULTIPLE)
+    per = -(-tiles // -(-WGRAD_WAVES * sms // chunks))
+    return per, -(-tiles // per)
+
+
+@functools.cache
+def _sm_count(device: torch.device) -> int:
+    """The SMs of the card `device` names, which wgrad_split fills."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+def wgrad_takes(x_shape, cout: int) -> bool:
+    """Whether the weight gradient of that conv goes to its kernel: shapes
+    it is built for (those of the forward), and a grid that can have
+    MIN_BLOCKS blocks."""
+    cin = x_shape[1]
+    return (_shape_fits(x_shape, (cout, cin, 3, 3, 3))
+            and grid_blocks(x_shape, COUT_MULTIPLE) * (cin // CIN_MULTIPLE)
+            * (cout // COUT_MULTIPLE) >= MIN_BLOCKS)
+
+
+def routes(x_shape, cout: int) -> dict:
+    """{pass: True where it takes a kernel} for the conv of input (B, Cin,
+    D, H, W) to `cout` channels that takes_kernel sends to the op."""
+    return {"fprop": fprop_takes(x_shape, cout),
+            "dgrad": dgrad_takes(x_shape, cout),
+            "wgrad": wgrad_takes(x_shape, cout)}
+
+
 def takes_kernel(conv, x: torch.Tensor, weight: torch.Tensor,
                  bias: torch.Tensor | None = None) -> bool:
     """Whether Conv3d module `conv`, called on `x` with `weight` and `bias`
@@ -95,18 +168,18 @@ def takes_kernel(conv, x: torch.Tensor, weight: torch.Tensor,
             and tuple(conv.padding) == (1, 1, 1)
             and tuple(conv.dilation) == (1, 1, 1)
             and conv.groups == 1 and conv.padding_mode == "zeros"
-            and not (torch.is_grad_enabled() and any(
-                t is not None and t.requires_grad for t in (x, weight, bias)))
-            and _shape_fits(x.shape, weight.shape)
-            and grid_blocks(x.shape, weight.shape[0]) >= MIN_BLOCKS)
+            and tuple(weight.shape[1:]) == (x.shape[1], 3, 3, 3)
+            and fprop_takes(x.shape, weight.shape[0]))
 
 
-def _check(x, weight, bias, device_types=("cuda",)) -> None:
-    """Raise unless the kernel takes these tensors: float32, contiguous, on
-    one device of a type in `device_types`, of shapes it is built for."""
-    tensors = {"x": x, "weight": weight}
-    if bias is not None:
-        tensors["bias"] = bias
+def _check(tensors: dict, x_shape, weight_shape,
+           device_types=("cuda",)) -> None:
+    """Raise unless the kernels take `tensors` (name: tensor or None):
+    float32, contiguous, on one device of a type in `device_types`, for a
+    conv of input `x_shape` and weight `weight_shape` of shapes they are
+    built for, with a bias of Cout values and an output gradient of the
+    output's shape."""
+    tensors = {k: t for k, t in tensors.items() if t is not None}
     devices = {t.device for t in tensors.values()}
     if len(devices) != 1:
         raise ValueError(f"conv3d_3x3x3 inputs on different devices: "
@@ -121,15 +194,21 @@ def _check(x, weight, bias, device_types=("cuda",)) -> None:
         if not t.is_contiguous():
             raise ValueError(f"conv3d_3x3x3 takes contiguous tensors; {name} "
                              f"is not")
-    if not _shape_fits(x.shape, weight.shape):
+    if not _shape_fits(x_shape, weight_shape):
         raise ValueError(
             f"conv3d_3x3x3 is built for x (B, Cin, D, H, W) with Cin a "
             f"multiple of {CIN_MULTIPLE}, W in {KERNEL_WIDTHS}, and weight "
             f"(Cout, Cin, 3, 3, 3) with Cout a multiple of {COUT_MULTIPLE}; "
-            f"got {tuple(x.shape)} and {tuple(weight.shape)}")
-    if bias is not None and tuple(bias.shape) != (weight.shape[0],):
+            f"got {tuple(x_shape)} and {tuple(weight_shape)}")
+    cout = weight_shape[0]
+    bias, dy = tensors.get("bias"), tensors.get("dy")
+    if bias is not None and tuple(bias.shape) != (cout,):
         raise ValueError(f"conv3d_3x3x3: bias has shape {tuple(bias.shape)}, "
-                         f"expected ({weight.shape[0]},)")
+                         f"expected ({cout},)")
+    out_shape = (x_shape[0], cout, *x_shape[2:])
+    if dy is not None and tuple(dy.shape) != out_shape:
+        raise ValueError(f"conv3d_3x3x3: dy has shape {tuple(dy.shape)}, "
+                         f"expected {out_shape}")
 
 
 @functools.cache
@@ -149,7 +228,7 @@ def _aligned(t: torch.Tensor) -> torch.Tensor:
 
 
 def _conv_cuda(x, weight, bias):
-    _check(x, weight, bias)
+    _check({"x": x, "weight": weight, "bias": bias}, x.shape, weight.shape)
     b, cin, d, h, w = x.shape
     cout = weight.shape[0]
     out = x.new_empty((b, cout, d, h, w))
@@ -171,7 +250,8 @@ def _conv_fake(x, weight, bias):
     (a meta tensor stands for the card's within
     attention.meta_stands_for_card)."""
     if x.device.type != "cpu":
-        _check(x, weight, bias, device_types=(
+        _check({"x": x, "weight": weight, "bias": bias}, x.shape,
+               weight.shape, device_types=(
             ("cuda", "meta") if attention._meta_as_card else ("cuda",)))
     return x.new_empty((x.shape[0], weight.shape[0], *x.shape[2:]))
 
@@ -190,19 +270,168 @@ def conv3d_3x3x3(x: torch.Tensor, weight: torch.Tensor,
     float32 kernel. The op hupr_tpu_torch::conv3d_3x3x3: CPU tensors take
     the plain version; CUDA tensors launch the kernel on the current stream
     (counted in `conv3d_3x3x3.launches` and, while a profiler records, the
-    counter hupr.conv3d_tf32x3), or raise. Forward only: its output records
-    no graph, so with autograd recording and an input that requires grad it
-    raises (takes_kernel keeps such convs on F.conv3d)."""
-    if torch.is_grad_enabled() and any(
-            t is not None and t.requires_grad for t in (x, weight, bias)):
-        raise RuntimeError("conv3d_3x3x3 is forward-only: run it under "
-                           "torch.inference_mode() or torch.no_grad()")
+    counter hupr.conv3d_tf32x3), or raise. Where autograd records, its
+    gradient is `_backward`'s."""
     return _conv_op(x, weight, bias)
 
 
+def conv_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The plain version of the weight gradient: F.conv3d's at stride 1,
+    padding 1, for input `x` and output gradient `dy`."""
+    return torch.nn.grad.conv3d_weight(
+        x, (dy.shape[1], x.shape[1], 3, 3, 3), dy, padding=1)
+
+
+@functools.cache
+def _wgrad_kernel():
+    """The ctypes function of csrc/conv3d_wgrad.cu: x, dy, the workspace,
+    then b, cin, cout, depth, height, width, tiles a block, then the
+    stream."""
+    fn = load_library("conv3d_wgrad").hupr_conv3d_wgrad
+    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
+        + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+def conv3d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
+    """The weight gradient (Cout, Cin, 3, 3, 3) of conv3d_3x3x3 at input `x`
+    (B, Cin, D, H, W) and output gradient `dy` (B, Cout, D, H, W). CPU
+    tensors take the plain version; CUDA tensors launch the kernel on the
+    current stream (counted in `conv3d_wgrad.launches` and, while a
+    profiler records, the counter hupr.conv3d_wgrad_tf32x3), or raise. The
+    kernel writes each split's partial sums to a workspace, which torch's
+    sum adds in a fixed order, with no atomics: the same bits on every
+    call."""
+    if x.device.type == "cpu" and dy.device.type == "cpu":
+        return conv_wgrad_plain(x, dy)
+    b, cin, d, h, w = x.shape
+    cout = dy.shape[1]
+    _check({"x": x, "dy": dy}, x.shape, (cout, cin, 3, 3, 3))
+    per, splits = wgrad_split(x.shape, cout, _sm_count(x.device))
+    part = x.new_empty((splits, cout, cin, 3, 3, 3))
+    x, dy = _aligned(x), _aligned(dy)
+    err = _wgrad_kernel()(x.data_ptr(), dy.data_ptr(), part.data_ptr(), b,
+                          cin, cout, d, h, w, per,
+                          torch.cuda.current_stream(x.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"conv3d_wgrad kernel launch failed with CUDA "
+                           f"error {err}")
+    conv3d_wgrad.launches += 1
+    profiling.count(WGRAD_COUNTER)
+    return part[0] if splits == 1 else part.sum(0)
+
+
+def dgrad_weight(weight: torch.Tensor) -> torch.Tensor:
+    """The forward kernel's weight for the input gradient: `weight` flipped
+    in its three spatial axes, its channel axes swapped, (Cin, Cout, 3, 3,
+    3). A 3x3x3 conv at stride 1 and padding 1 of the output gradient with
+    it is the gradient of the input."""
+    return weight.flip((2, 3, 4)).transpose(0, 1).contiguous()
+
+
+_ONES, _ZEROS = [1, 1, 1], [0, 0, 0]
+
+
+def _aten_backward(dy, x, weight, bias_sizes, mask):
+    """aten's convolution_backward of conv3d_3x3x3, as F.conv3d's autograd
+    calls it: (dx, dw, db), each None where `mask` leaves it out."""
+    return torch.ops.aten.convolution_backward(
+        dy, x, weight, bias_sizes, _ONES, _ONES, _ONES, False, _ZEROS, 1,
+        mask)
+
+
+def _setup_context(ctx, inputs, output):
+    x, weight, bias = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.bias_sizes = None if bias is None else list(bias.shape)
+
+
+def _backward(ctx, dy):
+    """dX, dW and db of the op. On the card each pass takes its kernel
+    where its own rule in `routes` holds (dgrad_takes: the forward kernel
+    on dy with dgrad_weight; wgrad_takes: conv3d_wgrad) and aten's
+    convolution_backward (cuDNN) where it does not; db is dy's sum. Off the
+    card all three are aten's, as F.conv3d's autograd computes them."""
+    x, weight = ctx.saved_tensors
+    need_x, need_w, need_b = ctx.needs_input_grad
+    if dy.device.type != "cuda":
+        return _aten_backward(dy, x, weight, ctx.bias_sizes,
+                              [need_x, need_w, need_b])
+    dy = dy.contiguous()
+    route = routes(x.shape, weight.shape[0])
+    kernel_x = need_x and route["dgrad"]
+    kernel_w = need_w and route["wgrad"]
+    aten_x, aten_w = need_x and not kernel_x, need_w and not kernel_w
+    dx = dw = None
+    if aten_x or aten_w:
+        dx, dw, _ = _aten_backward(dy, x, weight, None,
+                                   [aten_x, aten_w, False])
+    if kernel_x:
+        dx = _conv_op(dy, dgrad_weight(weight), None)
+    if kernel_w:
+        dw = conv3d_wgrad(x, dy)
+    db = dy.sum((0, 2, 3, 4)) if need_b else None
+    return dx, dw, db
+
+
+_conv_op.register_autograd(_backward, setup_context=_setup_context)
+
+
+def takes_window(conv, x: torch.Tensor, weight: torch.Tensor,
+                 bias: torch.Tensor | None = None) -> bool:
+    """Whether Conv3d module `conv`, called on `x` with `weight` and `bias`
+    in its compute dtype, goes to WindowConv (the rule in the module
+    docstring)."""
+    k = conv.kernel_size[0]
+    return (tuple(conv.kernel_size[1:]) == (1, 1)
+            and x.device.type == "cuda" and x.dim() == 5
+            and x.dtype == weight.dtype == torch.float32
+            and (bias is None or bias.dtype == torch.float32)
+            and torch.is_grad_enabled() and any(
+                t is not None and t.requires_grad for t in (x, weight, bias))
+            and tuple(conv.stride[1:]) == (1, 1)
+            and (conv.stride[0] == k or x.shape[2] == k)
+            and x.shape[2] % k == 0
+            and tuple(conv.padding) == (0, 0, 0)
+            and tuple(conv.dilation) == (1, 1, 1)
+            and conv.groups == 1 and conv.padding_mode == "zeros")
+
+
+class WindowConv(torch.autograd.Function):
+    """F.conv3d(x, weight, bias, stride) for a (Cout, Cin, k, 1, 1) weight
+    whose windows tile the depth (takes_window), with gradients that are
+    matrix products over each window's Cin x k values: y[b, o, d, p] =
+    sum_{c, t} w[o, c, t] x[b, c, d k + t, p] + bias[o], so dW = sum_{b, d,
+    p} dY x and dX = W^T dY."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, stride):
+        ctx.save_for_backward(x, weight)
+        return F.conv3d(x, weight, bias, stride=stride)
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, weight = ctx.saved_tensors
+        b, c, d, h, w = x.shape
+        o, k = weight.shape[0], weight.shape[2]
+        g = dy.reshape(b, o, d // k, h * w)
+        dx = dw = db = None
+        if ctx.needs_input_grad[0]:
+            dx = torch.einsum("oct,bodp->bcdtp", weight.reshape(o, c, k),
+                              g).reshape(x.shape)
+        if ctx.needs_input_grad[1]:
+            dw = torch.einsum("bodp,bcdtp->oct", g, x.reshape(
+                b, c, d // k, k, h * w)).reshape(weight.shape)
+        if ctx.needs_input_grad[2]:
+            db = dy.sum((0, 2, 3, 4))
+        return dx, dw, db, None
+
+
 def reset_launch_counts() -> None:
-    """Zero the kernel wrapper's launch count."""
+    """Zero the kernel wrappers' launch counts."""
     conv3d_3x3x3.launches = 0
+    conv3d_wgrad.launches = 0
 
 
 reset_launch_counts()

@@ -1,13 +1,16 @@
 """The Encoder3Ds' float32 3x3x3 convolution op (hupr_tpu_torch/ops/conv.py)
-on the CPU: which convs go to it, its CPU and fake kernels against
-F.conv3d at the Encoder3D shapes, and a torch model of the card kernel's
-3xTF32 arithmetic against a float64 convolution, which sets the card tests'
-bar (tests/test_torch_cuda.py)."""
+on the CPU: which convs go to it and which of their passes take a kernel,
+its CPU and fake kernels and its gradients against F.conv3d at the
+Encoder3D shapes, and torch models of the card kernels' 3xTF32 arithmetic
+(the forward's, and the weight gradient's in its split and summation order)
+against float64, which set the card tests' bar
+(tests/test_torch_cuda.py)."""
 
 import collections
 import contextlib
 import importlib.util
 import os
+import types
 
 import pytest
 import torch
@@ -30,6 +33,7 @@ ENCODER_CONVS = [((1, 32, 8, 64, 64), 64, True),
                  ((1, 128, 4, 32, 32), 128, False),
                  ((1, 128, 2, 16, 16), 256, False),
                  ((1, 256, 2, 16, 16), 256, False)]
+H100_SMS = 132   # the H100 SXM's SMs, which the weight-gradient split fills
 
 
 def _draw(shape, cout, bias, seed=0):
@@ -69,8 +73,9 @@ def _x(cin=32, w=16, dtype=torch.float32):
     (lambda: Conv3d(64, 128, 3, 1, 1, bias=False), _x(64, 32), False, True),
     (lambda: Conv3d(256, 256, 3, 1, 1, bias=False), _x(256, 8), False, True),
     (lambda: Conv3d(32, 64, 3, 1, 1), _x(w=64), False, True),
-    # their gradient is needed: F.conv3d
-    (lambda: Conv3d(32, 64, 3, 1, 1), _x(), True, False),
+    # their gradient is needed: the op too (its gradient is the op's)
+    (lambda: Conv3d(32, 64, 3, 1, 1), _x(), True, True),
+    (lambda: Conv3d(64, 128, 3, 1, 1, bias=False), _x(64, 32), True, True),
     # bfloat16 compute dtype: F.conv3d
     (lambda: Conv3d(32, 64, 3, 1, 1, compute_dtype=torch.bfloat16), _x(),
      False, False),
@@ -129,15 +134,16 @@ def test_takes_kernel_with_grad_on_and_nothing_to_differentiate():
 
 @pytest.mark.parametrize("mode", ["inference", "no_grad", "grad"])
 def test_conv3d_module_routes_by_grad_mode(monkeypatch, mode):
-    """blocks.Conv3d's forward: the op under inference_mode or no_grad,
-    F.conv3d when autograd records; the same values either way."""
+    """blocks.Conv3d's forward: the op under inference_mode, under no_grad
+    and when autograd records (then with a graph); the same values every
+    way."""
     m = Conv3d(32, 64, 3, 1, 1)
     x = torch.randn((64, 32, 2, 3, 8))
     ctx = {"inference": torch.inference_mode(), "no_grad": torch.no_grad(),
            "grad": contextlib.nullcontext()}[mode]
     with _counting(monkeypatch) as calls, ctx:
         got = m(x)
-    assert len(calls) == (0 if mode == "grad" else 1)
+    assert len(calls) == 1
     assert got.requires_grad == (mode == "grad")
     torch.testing.assert_close(got.detach(), F.conv3d(x, m.weight, m.bias,
                                                       padding=1),
@@ -171,14 +177,14 @@ def _meta_maps(b=32, g=8, side=64, f=32):
 
 
 @pytest.mark.parametrize("grad,dtype,want", [
-    (False, torch.float32, 32), (True, torch.float32, 0),
+    (False, torch.float32, 32), (True, torch.float32, 32),
     (False, torch.bfloat16, 0)])
 def test_flagship_request_sends_each_encoder_conv(monkeypatch, grad, dtype,
                                                   want):
     """HuPRNet at the flagship geometry on meta tensors (the ops' shape
-    functions, attention.meta_stands_for_card): a served float32 request
-    sends the 16 3x3x3 convs of each of the two Encoder3Ds to the op; a
-    forward that autograd records, and a bfloat16 model, send none."""
+    functions, attention.meta_stands_for_card): a float32 forward at 32
+    windows sends the 16 3x3x3 convs of each of the two Encoder3Ds to the
+    op, served or recorded by autograd; a bfloat16 model sends none."""
     model = HuPRNet(num_filters=32, heatmap_size=64, attn_impl="pallas",
                     compute_dtype=dtype).to("meta")
     model.train(grad)
@@ -303,11 +309,193 @@ def test_fake_kernel_refuses_what_the_card_refuses(bad, match):
 
 
 def test_op_refuses_a_graph():
-    """Forward only: with autograd recording and an input that requires
-    grad, the wrapper raises."""
+    """With autograd recording and only the weight requiring grad, the op
+    records a graph (it refuses none) whose weight gradient is F.conv3d's
+    bit for bit and which leaves the input and bias without one."""
     x, w, b = _draw((1, 8, 2, 3, 8), 64, True)
-    with pytest.raises(RuntimeError, match="forward-only"):
-        conv.conv3d_3x3x3(x, w.requires_grad_(True), b)
+    y = conv.conv3d_3x3x3(x, w.requires_grad_(True), b)
+    assert y.requires_grad
+    dy = torch.randn_like(y)
+    got, = torch.autograd.grad(y, w, dy)
+    want, = torch.autograd.grad(F.conv3d(x, w, b, padding=1), w, dy)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("needs", ["all", "x", "weight", "weight_bias"])
+@pytest.mark.parametrize("shape,cout,bias", ENCODER_CONVS,
+                         ids=[f"{s[1]}to{c}" for s, c, _ in ENCODER_CONVS])
+def test_op_gradients_are_conv3d_bit_for_bit(shape, cout, bias, needs):
+    """At every Encoder3D's channels (the extent cut, batch 2): the op's
+    output and its gradients of each input that requires one equal
+    F.conv3d's and its autograd's bit for bit."""
+    x, w, b = _draw((2, shape[1], 2, 4, 8), cout, bias, seed=cout)
+    wants = {"all": ("x", "w", "b"), "x": ("x",), "weight": ("w",),
+             "weight_bias": ("w", "b")}[needs]
+    leaves = {"x": x, "w": w, "b": b}
+    for name, t in leaves.items():
+        if t is not None:
+            t.requires_grad_(name in wants)
+    inputs = [leaves[n] for n in wants if leaves[n] is not None]
+    got_y = conv.conv3d_3x3x3(x, w, b)
+    want_y = F.conv3d(x, w, b, padding=1)
+    dy = torch.randn_like(want_y)
+    got = torch.autograd.grad(got_y, inputs, dy)
+    want = torch.autograd.grad(want_y, inputs, dy)
+    assert torch.equal(got_y, want_y)
+    assert all(torch.equal(g, h) for g, h in zip(got, want))
+    assert conv.conv3d_3x3x3.launches == conv.conv3d_wgrad.launches == 0
+
+
+def test_wgrad_cpu_is_its_plain_version():
+    """conv3d_wgrad on CPU tensors is the plain version, F.conv3d's weight
+    gradient, and counts no launch."""
+    x, w, _ = _draw((2, 16, 3, 5, 8), 64, False)
+    dy = torch.randn((2, 64, 3, 5, 8))
+    want, = torch.autograd.grad(F.conv3d(x, w.requires_grad_(), padding=1),
+                                w, dy)
+    assert torch.equal(conv.conv3d_wgrad(x, dy), want)
+    assert torch.equal(conv.conv_wgrad_plain(x, dy), want)
+    assert conv.conv3d_wgrad.launches == 0
+
+
+def test_dgrad_weight_makes_the_forward_the_input_gradient():
+    """A conv of the output gradient with dgrad_weight(w), as the forward
+    kernel computes it, is F.conv3d's input gradient."""
+    x, w, _ = _draw((2, 64, 3, 4, 8), 128, False, seed=4)
+    dy = torch.randn((2, 128, 3, 4, 8), dtype=torch.float64)
+    x, w = x.double().requires_grad_(), w.double()
+    want, = torch.autograd.grad(F.conv3d(x, w, padding=1), x, dy)
+    got = F.conv3d(dy, conv.dgrad_weight(w), padding=1)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    assert conv.dgrad_weight(w).shape == (64, 128, 3, 3, 3)
+
+
+# ------------------------------------------ each pass's kernel-or-cuDNN rule
+
+# (fprop, dgrad, wgrad) of each Encoder3D conv at data parallel training's 5
+# rows a card and the one-card batch of 20
+PASS_ROUTES = {
+    5: [(True, False, True), (True, True, True), (True, True, True),
+        (True, True, True), (False, False, True), (False, False, True)],
+    20: [(True, False, True)] + [(True, True, True)] * 5}
+
+
+@pytest.mark.parametrize("b", sorted(PASS_ROUTES))
+def test_each_pass_takes_its_kernel_by_its_own_grid(b):
+    """At batch b, for each Encoder3D conv: the forward where its grid has
+    conv.MIN_BLOCKS blocks (not the (2, 16, 16) convs at 5 rows, 40
+    blocks, which the module then sends to cuDNN whole); dX through the
+    forward kernel where dY's conv to Cin channels fits the forward's rule
+    (not the first conv: 32 channels), dW through its kernel; and the
+    weight-gradient kernel's splits bring its grid to two to four waves of
+    the H100 SXM's 132 SMs."""
+    got = []
+    for shape, cout, _ in ENCODER_CONVS:
+        x_shape = (b, *shape[1:])
+        r = conv.routes(x_shape, cout)
+        got.append((r["fprop"], r["dgrad"], r["wgrad"]))
+        per, splits = conv.wgrad_split(x_shape, cout, H100_SMS)
+        chunks = shape[1] // conv.CIN_MULTIPLE * (cout // conv.COUT_MULTIPLE)
+        tiles = conv.grid_blocks(x_shape, conv.COUT_MULTIPLE)
+        assert (splits - 1) * per < tiles <= splits * per
+        assert (2 * H100_SMS <= splits * chunks
+                < conv.WGRAD_WAVES * H100_SMS + chunks)
+    assert got == PASS_ROUTES[b]
+
+
+@pytest.mark.parametrize("b", sorted(PASS_ROUTES))
+def test_module_takes_the_op_by_the_forward_rule_under_grad(b):
+    """With autograd recording, blocks.Conv3d sends an Encoder3D conv to
+    the op exactly where its forward takes the kernel, as without it."""
+    for shape, cout, bias in ENCODER_CONVS:
+        m = Conv3d(shape[1], cout, 3, 1, 1, bias=bias)
+        x = torch.zeros((b, *shape[1:]), device="meta")
+        assert m.weight.requires_grad
+        assert conv.takes_kernel(m, x, m.weight, m.bias) == \
+            conv.fprop_takes(x.shape, cout)
+
+
+def test_meta_train_step_gradients_have_the_weights_shapes():
+    """On meta tensors standing for the card's (the flagship shape pass),
+    an Encoder3D's forward and backward run through the op at batch 20:
+    every parameter gets a gradient of its shape."""
+    enc = Encoder3D(32, 8).to("meta")
+    with attention.meta_stands_for_card():
+        out = enc(torch.empty((20, 32, 8, 64, 64), device="meta",
+                              requires_grad=True))
+        sum(o.sum() for o in out).backward()
+    assert all(p.grad is not None and p.grad.shape == p.shape
+               for p in enc.parameters())
+
+
+# ---------------------------------- the window convs' gradients (WindowConv)
+
+def _stand_in(shape, device="cuda", dtype=torch.float32, grad=True):
+    """What takes_window reads of an input, on a device this machine may
+    not have."""
+    return types.SimpleNamespace(shape=shape, dtype=dtype, requires_grad=grad,
+                                 device=torch.device(device),
+                                 dim=lambda: len(shape))
+
+
+@pytest.mark.parametrize("make,x,grad,want", [
+    # MNet's conv, kernel and stride (2, 1, 1), 8 chirps
+    (lambda: MNet(32).temporalConvWx1x1, _stand_in((16, 2, 8, 8, 8)), True,
+     True),
+    # the temporal merges: one window over the depth, stride 1
+    (lambda: Conv3d(64, 64, (8, 1, 1), bias=False),
+     _stand_in((2, 64, 8, 8, 8)), True, True),
+    (lambda: Conv3d(256, 256, (2, 1, 1), bias=False),
+     _stand_in((2, 256, 2, 4, 4)), True, True),
+    # no gradient needed, on the CPU, in bfloat16: F.conv3d
+    (lambda: MNet(32).temporalConvWx1x1, _stand_in((16, 2, 8, 8, 8)), False,
+     False),
+    (lambda: MNet(32).temporalConvWx1x1,
+     _stand_in((16, 2, 8, 8, 8), device="cpu"), True, False),
+    (lambda: MNet(32, torch.bfloat16).temporalConvWx1x1,
+     _stand_in((16, 2, 8, 8, 8), dtype=torch.bfloat16), True, False),
+    # windows that overlap or leave a rest, and other kernels
+    (lambda: Conv3d(64, 64, (2, 1, 1), bias=False),
+     _stand_in((2, 64, 8, 8, 8)), True, False),
+    (lambda: Conv3d(2, 32, (2, 1, 1), (2, 1, 1)), _stand_in((2, 2, 7, 8, 8)),
+     True, False),
+    (lambda: Conv3d(64, 64, (2, 1, 1), (2, 1, 1), (1, 0, 0)),
+     _stand_in((2, 64, 8, 8, 8)), True, False),
+    (lambda: Conv3d(64, 64, 3, 1, 1), _stand_in((2, 64, 8, 8, 8)), True,
+     False),
+])
+def test_takes_window(make, x, grad, want):
+    """ops/conv.takes_window on the module as blocks.Conv3d calls it."""
+    m = make()
+    dt = m.compute_dtype
+    with torch.set_grad_enabled(grad):
+        bias = None if m.bias is None else m.bias.to(dt)
+        assert conv.takes_window(m, x, m.weight.to(dt), bias) == want
+
+
+@pytest.mark.parametrize("shape,cout,k,stride,bias", [
+    ((4, 2, 8, 6, 5), 32, 2, 2, True),      # MNet's
+    ((2, 64, 8, 4, 4), 64, 8, 1, False),    # the temporal merges'
+    ((2, 128, 4, 4, 4), 128, 4, 1, False),
+    ((2, 256, 2, 2, 2), 256, 2, 1, False)])
+def test_window_conv_gradients_are_conv3d(shape, cout, k, stride, bias):
+    """WindowConv's output is F.conv3d's bit for bit, and its gradients
+    (matrix products over the windows) are F.conv3d's autograd's within
+    float64 rounding."""
+    gen = torch.Generator().manual_seed(cout + k)
+    x = torch.randn(shape, generator=gen, dtype=torch.float64)
+    w = torch.randn((cout, shape[1], k, 1, 1), generator=gen,
+                    dtype=torch.float64)
+    b = torch.randn((cout,), generator=gen, dtype=torch.float64) \
+        if bias else None
+    leaves = [t.requires_grad_() for t in (x, w, b) if t is not None]
+    got_y = conv.WindowConv.apply(x, w, b, (stride, 1, 1))
+    want_y = F.conv3d(x, w, b, stride=(stride, 1, 1))
+    dy = torch.randn(want_y.shape, generator=gen, dtype=torch.float64)
+    assert torch.equal(got_y, want_y)
+    for g, h in zip(torch.autograd.grad(got_y, leaves, dy),
+                    torch.autograd.grad(want_y, leaves, dy)):
+        torch.testing.assert_close(g, h, rtol=1e-12, atol=1e-12)
 
 
 # ----------------------------------------- the card kernel's arithmetic
@@ -357,5 +545,83 @@ def test_3xtf32_model_within_the_card_bar_and_1xtf32_over_it(shape, cout):
     ref = F.conv3d(x.double(), w.double(), b.double(), padding=1)
     three = _rel_err(conv_3xtf32(x, w, b), ref)
     one = _rel_err(conv_1xtf32(x, w, b), ref)
+    assert three < conv.REL_TOL / 10
+    assert one > conv.REL_TOL
+
+
+def wgrad_model(x, dy, product):
+    """The weight-gradient kernel's sums in torch (csrc/conv3d_wgrad.cu):
+    the voxels in tiles of 2 depths x 128 / W rows x W columns (zero past
+    the volume), each tile in 4 chains of 64 voxels whose products
+    `product(dy_chain, x_chain)` (float32, (Cout, Cin x 27)) are summed from
+    zero; each block adds its chains into its float32 accumulator in order,
+    tile by tile over its split of conv.wgrad_split's tiles (on the H100
+    SXM's SMs), and the splits are added by torch's sum, as the wrapper
+    adds them."""
+    b, cin, d, h, w = x.shape
+    cout = dy.shape[1]
+    rows = conv.BLOCK_VOXELS // (2 * w)
+    dd, hh = -(-d // 2) * 2, -(-h // rows) * rows
+    xp = F.pad(x, (1, 1, 1, 1 + hh - h, 1, 1 + dd - d))
+    g = F.pad(dy, (0, 0, 0, hh - h, 0, dd - d))
+    # the 27 shifted inputs, tap-minor: (B, Cin x 27, D', H', W)
+    cols = torch.stack([xp[:, :, i:i + dd, j:j + hh, k:k + w]
+                        for i in range(3) for j in range(3)
+                        for k in range(3)], 2).reshape(b, cin * 27, dd, hh, w)
+
+    def chains(t):   # (B, C, D', H', W) -> (tiles, 4 chains, C, 64 voxels)
+        c = t.shape[1]
+        t = t.reshape(b, c, dd // 2, 2, hh // rows, rows, w)
+        t = t.permute(0, 2, 4, 1, 3, 5, 6).reshape(-1, c, 4, 64)
+        return t.transpose(1, 2)
+
+    parts = product(chains(g), chains(cols))     # (tiles, 4, Cout, N)
+    per, splits = conv.wgrad_split(x.shape, cout, H100_SMS)
+    parts = F.pad(parts.flatten(0, 1), (0, 0, 0, 0, 0,
+                                        4 * (splits * per) - 4 * len(parts)))
+    parts = parts.reshape(splits, 4 * per, cout, cin * 27)
+    acc = torch.zeros_like(parts[:, 0])
+    for i in range(4 * per):
+        acc = acc + parts[:, i]
+    return acc.sum(0).reshape(cout, cin, 3, 3, 3)
+
+
+def product_3xtf32(g, xs):
+    """A chain's 3xTF32 products: g and x split into hi = rna(v) and lo =
+    v - hi (lo's tf32 bits), lo.hi + hi.lo + hi.hi each an exact float32
+    product of tf32 values, added in float32 small terms first."""
+    gh, xh = _tf32_bits(g, True), _tf32_bits(xs, True)
+    gl, xl = _tf32_bits(g - gh, False), _tf32_bits(xs - xh, False)
+    return (gl @ xh.mT + gh @ xl.mT) + gh @ xh.mT
+
+
+def product_1xtf32(g, xs):
+    """A planted fault: one TF32 product (operands rounded to tf32)."""
+    return _tf32_bits(g, True) @ _tf32_bits(xs, True).mT
+
+
+# the Encoder3D's channel counts at each width, the extent cut, a batch
+# whose tiles make several splits
+@pytest.mark.parametrize("shape,cout", [((4, 32, 4, 4, 64), 64),
+                                        ((4, 64, 4, 4, 64), 64),
+                                        ((6, 128, 2, 8, 32), 128),
+                                        ((8, 256, 2, 8, 16), 256)])
+def test_wgrad_3xtf32_model_within_the_card_bar_and_1xtf32_over_it(shape,
+                                                                   cout):
+    """The weight-gradient kernel's 3xTF32 sums, modelled in their split and
+    summation order, read under conv.REL_TOL of float64 (max |error| over
+    max |reference|) by an order of magnitude; the same sums of one TF32
+    product read over it. The model without rounding is the float64
+    gradient: the tiling, chains and splits cover each product once."""
+    gen = torch.Generator().manual_seed(cout)
+    x = torch.randn(shape, generator=gen)
+    dy = torch.randn((shape[0], cout, *shape[2:]), generator=gen)
+    ref = torch.nn.grad.conv3d_weight(x.double(), (cout, shape[1], 3, 3, 3),
+                                      dy.double(), padding=1)
+    assert conv.wgrad_split(shape, cout, H100_SMS)[1] > 1
+    exact = wgrad_model(x.double(), dy.double(), lambda g, xs: g @ xs.mT)
+    torch.testing.assert_close(exact, ref, rtol=1e-12, atol=1e-10)
+    three = _rel_err(wgrad_model(x, dy, product_3xtf32), ref)
+    one = _rel_err(wgrad_model(x, dy, product_1xtf32), ref)
     assert three < conv.REL_TOL / 10
     assert one > conv.REL_TOL

@@ -895,6 +895,163 @@ def test_conv3d_kernel_matches_conv3d(cuda, shape, cout, bias):
     assert (got.double() - ref64).abs().max().item() <= conv.REL_TOL * scale
 
 
+_GRAD_CASES = [((b, *s), c, bias) for b in (5, 20)
+               for s, c, bias in _ENCODER_CONVS] + [
+    # ragged, as the forward's
+    ((3, 16, 5, 7, 8), 64, True), ((2, 24, 3, 5, 32), 192, True),
+    ((1, 32, 1, 1, 64), 64, False)]
+
+
+def _grad_draw(cuda, shape, cout, bias):
+    gen = torch.Generator(device=cuda).manual_seed(shape[0] + cout)
+    x = torch.randn(shape, device=cuda, generator=gen)
+    w = torch.randn((cout, shape[1], 3, 3, 3), device=cuda,
+                    generator=gen) / (27 * shape[1]) ** 0.5
+    b = torch.randn((cout,), device=cuda, generator=gen) if bias else None
+    dy = torch.randn((shape[0], cout, *shape[2:]), device=cuda,
+                     generator=gen)
+    return x, w, b, dy
+
+
+@pytest.mark.parametrize("shape,cout,bias", _GRAD_CASES,
+                         ids=[f"{s}-{c}" for s, c, _ in _GRAD_CASES])
+def test_conv3d_wgrad_kernel_matches_float64(cuda, shape, cout, bias):
+    """csrc/conv3d_wgrad.cu at each Encoder3D shape at B = 5 and 20, and at
+    ragged ones: within conv.REL_TOL (max |error| over max |reference|) of
+    the float64 weight gradient; the same bits on a second call; one launch
+    a call."""
+    from hupr_tpu_torch.ops import conv
+
+    x, _, _, dy = _grad_draw(cuda, shape, cout, bias)
+    before = conv.conv3d_wgrad.launches
+    got = conv.conv3d_wgrad(x, dy)
+    again = conv.conv3d_wgrad(x, dy)
+    torch.cuda.synchronize()
+    ref64 = conv.conv_wgrad_plain(x.double(), dy.double())
+    assert conv.conv3d_wgrad.launches - before == 2
+    assert torch.equal(got, again)
+    scale = ref64.abs().max().item()
+    assert (got.double() - ref64).abs().max().item() <= conv.REL_TOL * scale
+
+
+@pytest.mark.parametrize("shape,cout,bias", _GRAD_CASES,
+                         ids=[f"{s}-{c}" for s, c, _ in _GRAD_CASES])
+def test_conv3d_op_gradients_match_float64(cuda, shape, cout, bias):
+    """The op's gradient on the card, each pass where its rule sends it: dX
+    (the forward kernel on dY with the flipped weight, or cuDNN), dW (its
+    kernel, or cuDNN) and db within conv.REL_TOL of float64; the forward
+    kernel launched for the forward and each dX it takes, the weight
+    kernel for each dW it takes."""
+    from hupr_tpu_torch.ops import conv
+
+    x, w, b, dy = _grad_draw(cuda, shape, cout, bias)
+    leaves = [t.requires_grad_() for t in (x, w, b) if t is not None]
+    conv.reset_launch_counts()
+    got = torch.autograd.grad(conv.conv3d_3x3x3(x, w, b), leaves, dy)
+    torch.cuda.synchronize()
+    route = conv.routes(shape, cout)
+    assert (conv.conv3d_3x3x3.launches, conv.conv3d_wgrad.launches) == (
+        1 + route["dgrad"], int(route["wgrad"]))
+    leaves64 = [t.detach().double().requires_grad_() for t in leaves]
+    y64 = torch.nn.functional.conv3d(leaves64[0], leaves64[1],
+                                     leaves64[2] if bias else None, padding=1)
+    want = torch.autograd.grad(y64, leaves64, dy.double())
+    for g, ref in zip(got, want):
+        scale = ref.abs().max().item()
+        assert (g.double() - ref).abs().max().item() <= conv.REL_TOL * scale
+
+
+@pytest.mark.parametrize("shape,cout,k,stride,bias", [
+    ((160, 2, 8, 64, 64), 32, 2, 2, True),     # MNet's at batch 20
+    ((20, 64, 8, 64, 64), 64, 8, 1, False),    # the temporal merges'
+    ((20, 128, 4, 32, 32), 128, 4, 1, False),
+    ((20, 256, 2, 16, 16), 256, 2, 1, False)])
+def test_window_conv_gradients_match_float64(cuda, shape, cout, k, stride,
+                                             bias):
+    """A float32 (k, 1, 1) Conv3d that trains on the card goes to
+    ops/conv.WindowConv (takes_window): its output is cuDNN's, its
+    gradients, matrix products over the windows, are within conv.REL_TOL
+    (max |error| over max |reference|) of float64."""
+    from hupr_tpu_torch.models.blocks import Conv3d
+    from hupr_tpu_torch.ops import conv
+
+    gen = torch.Generator(device=cuda).manual_seed(cout)
+    m = Conv3d(shape[1], cout, (k, 1, 1), (stride, 1, 1), bias=bias).to(cuda)
+    x = torch.randn(shape, device=cuda, generator=gen).requires_grad_()
+    assert conv.takes_window(m, x, m.weight, m.bias)
+    y = m(x)
+    dy = torch.randn(y.shape, device=cuda, generator=gen)
+    leaves = [x] + list(m.parameters())
+    got = torch.autograd.grad(y, leaves, dy)
+    leaves64 = [t.detach().double().requires_grad_() for t in leaves]
+    y64 = torch.nn.functional.conv3d(leaves64[0], leaves64[1],
+                                     leaves64[2] if bias else None,
+                                     stride=(stride, 1, 1))
+    assert torch.equal(y, m._conv_forward(x, m.weight, m.bias))
+    for g, ref in zip(got, torch.autograd.grad(y64, leaves64, dy.double())):
+        scale = ref.abs().max().item()
+        assert (g.double() - ref).abs().max().item() <= conv.REL_TOL * scale
+
+
+def test_conv3d_wgrad_launches_per_train_step_and_matches_cudnn(cuda):
+    """Eight float32 train steps at the kernels' widths (numFilters 32) on
+    32x32 maps at batch 8, through the conv kernels and with every conv on
+    cuDNN (chip_smoke.plain_convs) from the same weights, each path from its
+    own state: per step the forward kernel runs each conv whose forward it
+    takes and each of those convs' dX it takes, the weight kernel each of
+    their dW (ops/conv.routes); finite losses within rtol 2e-4 of cuDNN's
+    route."""
+    import numpy as np
+
+    from hupr_tpu_torch.config import config_from_dict
+    from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
+                                             make_train_step)
+    from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops import conv
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    h, b = 32, 8
+    smoke = _chip_smoke()
+    fprop = wgrad = 0
+    for (cin, d, side, _), cout, _, per_forward in smoke.CONV_SHAPES:
+        r = conv.routes((b, cin, d, side * h // 64, side * h // 64), cout)
+        if r["fprop"]:
+            fprop += per_forward * (1 + r["dgrad"])
+            wgrad += per_forward * r["wgrad"]
+    rng = np.random.default_rng(1)
+    shape = (b, 8, 8, 2, h, h, 8)
+    batches = [{"hori": rng.standard_normal(shape).astype(np.float32),
+                "vert": rng.standard_normal(shape).astype(np.float32),
+                "jointsGroup": rng.uniform(4, 4 * h - 4, (b, 14, 2))}
+               for _ in range(8)]
+    weights = synthetic_state_dict(HuPRNet(num_filters=32, heatmap_size=h),
+                                   seed=0, scale=0.03)
+    losses = {}
+    for route in ("kernels", "cudnn"):
+        model = HuPRNet(num_filters=32, heatmap_size=h,
+                        attn_impl="pallas").to(cuda)
+        model.load_state_dict(weights, strict=True)
+        tx = make_optimizer(config_from_dict({}), model)
+        state = TrainState(model, tx)
+        step = make_train_step(model, tx, -1.0, (14, h, 4 * h))
+        losses[route] = []
+        for batch in batches:
+            conv.reset_launch_counts()
+            if route == "kernels":
+                state, metrics = step(state, batch, 1e-4, 0.0)
+            else:
+                with smoke.plain_convs():
+                    state, metrics = step(state, batch, 1e-4, 0.0)
+            torch.cuda.synchronize()
+            launched = conv.conv3d_3x3x3.launches, conv.conv3d_wgrad.launches
+            assert launched == ((fprop, wgrad) if route == "kernels"
+                                else (0, 0))
+            losses[route].append(metrics["loss"].item())
+    assert fprop > 0 and wgrad > 0
+    assert np.isfinite(losses["kernels"]).all()
+    np.testing.assert_allclose(losses["kernels"], losses["cudnn"], rtol=2e-4)
+
+
 def _conv_launches(fn) -> tuple:
     """(kernel launches, hupr.conv3d_tf32x3 count) over one profiled call
     of `fn`."""
@@ -926,8 +1083,9 @@ def test_conv3d_kernel_carries_each_encoder_conv_of_a_request(cuda):
 
 
 def test_conv3d_kernel_stays_off_training_and_bfloat16(cuda):
-    """A float32 train step (autograd records every conv) and a bfloat16
-    request launch no conv kernel."""
+    """A float32 train step whose convs' grids all stay under
+    conv.MIN_BLOCKS (16x16 maps at batch 2) and a bfloat16 request launch no
+    conv kernel, forward or weight gradient."""
     import numpy as np
 
     from hupr_tpu_torch.config import config_from_dict
@@ -935,6 +1093,7 @@ def test_conv3d_kernel_stays_off_training_and_bfloat16(cuda):
     from hupr_tpu_torch.engine.steps import (TrainState, make_optimizer,
                                              make_train_step)
     from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops import conv
     from hupr_tpu_torch.ops.dsp import RadarParams
     from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
 
@@ -951,6 +1110,7 @@ def test_conv3d_kernel_stays_off_training_and_bfloat16(cuda):
     state = TrainState(model, tx)
     step = make_train_step(model, tx, -1.0, (14, h, 4 * h))
     assert _conv_launches(lambda: step(state, batch, 1e-4, 0.0)) == (0, 0)
+    assert conv.conv3d_wgrad.launches == 0
 
     rp = RadarParams(num_adc_samples=128, num_chirp=48, idx_proc_chirp=16,
                      num_group_chirp=2)
@@ -963,6 +1123,7 @@ def test_conv3d_kernel_stays_off_training_and_bfloat16(cuda):
               for _ in range(4)]
     run(*planes)
     assert _conv_launches(lambda: run(*planes)) == (0, 0)
+    assert conv.conv3d_wgrad.launches == 0
 
 
 def test_exported_f32_artifact_equals_live_serving_bit_for_bit(cuda,
