@@ -14,7 +14,8 @@
    forward's log-sum-exp at B=20 as trained, the forward at B=1 as
    streamed, in modes f32 and bf16), and times kernel, plain version and
    the library call that computes the same function. The float32 conv
-   kernel (conv3d_fprop) at each Encoder3D shape at B=32 and B=1, within
+   kernel (conv3d_fprop) at each Encoder3D shape at B=32, 20, 5 and 1
+   (served, trained, a data parallel rank's rows, streamed), within
    ops/conv.REL_TOL of F.conv3d in float32 (TF32 off) and in float64; its
    plain version is the library's call, F.conv3d (cuDNN). The conv's
    gradients at each Encoder3D shape at B=5 and B=20 (data parallel
@@ -31,8 +32,8 @@
    the plain attention (MODEL.attention xla) and cuDNN's convolutions
    (plain_convs). The stream, export and shard phases and the train steps
    count the conv kernel's launches too: 32 to each 12 attention launches
-   of a float32 forward at B >= 8 (8 at the stream's B = 1, where the
-   deeper convs' grids stay on cuDNN: conv.MIN_BLOCKS), none in bfloat16;
+   of a float32 forward at B >= 4 (20 at the stream's B = 1, where the
+   16x16 convs' grids stay on cuDNN: conv.MIN_BLOCKS), none in bfloat16;
    a float32 train step at batch 20 launches conv3d_fprop 62 times (32
    forwards, 30 input gradients) and conv3d_wgrad 32 times.
 5. Trains the flagship recipe (batch 20, Adam at lr 1e-4) for a few steps
@@ -228,7 +229,7 @@ ATTN_SHAPES = ((256, 256), (1024, 128), (4096, 64))
 # Encoder3Ds at the flagship width (models/encoder3d.py: each has the stem,
 # one BasicBlock of 3 convs at 64x64 and two BasicBlocks of 2 + 3 at each
 # of the other two scales): 32 launches of conv3d_fprop a float32 forward
-# at B >= 8, fewer where a shape's grid falls under conv.MIN_BLOCKS (8 at
+# at B >= 4, fewer where a shape's grid falls under conv.MIN_BLOCKS (20 at
 # the stream's B = 1)
 CONV_SHAPES = (((32, 8, 64, 64), 64, True, 2),
                ((64, 8, 64, 64), 64, False, 6),
@@ -467,9 +468,11 @@ def check_attention(torch, peaks):
 
 
 def check_conv(torch, peaks):
-    """The float32 conv kernel (csrc/conv3d_fprop.cu, 3xTF32 on the tensor
-    cores) at each Encoder3D shape, at B=ATTN_BATCH as served and B=1 as
-    streamed: max |error| over max |reference| within conv.REL_TOL of
+    """The float32 conv kernel (csrc/conv3d_fprop.cu, 3xTF32 on wgmma) at
+    each Encoder3D shape, at B=ATTN_BATCH as served, B=TRAIN_BATCH and 5 as
+    trained on one card and on a data parallel rank, and B=1 as streamed
+    (each row says whether conv.fprop_takes sends the shape to it): max
+    |error| over max |reference| within conv.REL_TOL of
     F.conv3d in float32 with TF32 off and of F.conv3d in float64,
     bit-identical on a second call; timed beside the plain version, which is
     the library's call (F.conv3d: cuDNN, TF32 off). The bound is the larger
@@ -482,7 +485,7 @@ def check_conv(torch, peaks):
 
     gen = torch.Generator(device="cuda").manual_seed(9)
     rows = []
-    for b in (ATTN_BATCH, 1):
+    for b in (ATTN_BATCH, TRAIN_BATCH, 5, 1):
         for (cin, d, h, w), cout, with_bias, per in CONV_SHAPES:
             x = torch.randn((b, cin, d, h, w), generator=gen, device="cuda")
             wt = torch.randn((cout, cin, 3, 3, 3), generator=gen,
@@ -500,6 +503,7 @@ def check_conv(torch, peaks):
                 row = {"kernel": "conv3d_fprop", "mode": "f32", "B": b,
                        "Cin": cin, "DHW": [d, h, w], "Cout": cout,
                        "bias": with_bias, "per_forward": per,
+                       "taken": conv.fprop_takes(x.shape, cout),
                        "max_abs_err": err, "rel_err": err / scale,
                        "rel_err_vs_f64": (got.double() - want64).abs().max()
                        .item() / scale,
@@ -4728,7 +4732,8 @@ def main() -> int:
                                "bound_ms")}
         | {"per": f"one streamed frame: {conv_per_forward(1)} launches, "
                   f"B=1 (the other convs stay on cuDNN)"},
-        body="conv3d_fprop_tf32<W> (3xTF32 on mma.sync, csrc/tf32.cuh)",
+        body="conv3d_fprop_wgmma<W> (3xTF32 on wgmma, csrc/tf32.cuh; "
+             "pack_weights before it)",
         rel_err=max(r["rel_err"] for r in conv_rows),
         rel_err_vs_f64=max(r["rel_err_vs_f64"] for r in conv_rows),
         library="F.conv3d (cuDNN, TF32 off), also the plain version",

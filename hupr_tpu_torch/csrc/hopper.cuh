@@ -1,9 +1,11 @@
 // Hopper (sm_90a) building blocks of the attention kernels' tensor-core
-// bodies: cp.async staging of bfloat16 tiles into the 128-byte-swizzled
-// layout that wgmma's shared-memory descriptors name, the descriptors, the
-// warpgroup matrix multiply-accumulate (wgmma, bf16 operands, float32
-// accumulators) and its fences. Inline PTX only: no CuTe templates, so the
-// 30-odd kernel instantiations of the two sources build in seconds.
+// bodies and the conv forward's: cp.async staging of bfloat16 tiles into the
+// 128-byte-swizzled layout that wgmma's shared-memory descriptors name, the
+// descriptors, the warpgroup matrix multiply-accumulate (wgmma, bf16
+// operands, float32 accumulators) and its fences; mbarriers and the copy
+// engine's bulk copies for a producer warp's ring of stages. Inline PTX
+// only: no CuTe templates, so the 30-odd kernel instantiations of the
+// sources build in seconds.
 //
 // Tile layout. A (ROWS, C) bf16 tile of a row-major (n, C) panel is stored
 // as C/64 column panels of ROWS rows of 128 bytes (64 elements); the
@@ -82,6 +84,66 @@ __device__ __forceinline__ void cp_async_wait() {
 // wgmma reads through; then a barrier makes them everyone's.
 __device__ __forceinline__ void fence_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ----------------------------------------------------------- mbarriers
+
+// A barrier in shared memory whose phase completes after `count` arrivals
+// (and, where a copy names it, the bytes it expects). Thread 0 initializes;
+// then mbar_fence_init and a block barrier make it everyone's.
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// One arrival that also announces `bytes` of copies still to land.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+// Wait until the phase of the given parity has completed. A barrier starts
+// in phase 0, so waiting on parity 1 returns at once: a producer waits on
+// its empty barriers with (round & 1) ^ 1, a consumer on full ones with
+// round & 1.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+}
+// An arrival on bar once every cp.async this thread has issued has landed;
+// the barrier's count includes it (.noinc).
+__device__ __forceinline__ void cp_async_arrive(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::
+                   "r"(bar)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+// `bytes` contiguous bytes (a multiple of 16, both ends on 16-byte
+// boundaries) from global src to shared dst by the copy engine, counted
+// against bar's expected bytes.
+__device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
 }
 
 // Copy rows 0..ROWS-1 of the (., C) bf16 panel at src into the swizzled

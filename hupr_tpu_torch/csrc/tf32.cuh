@@ -1,8 +1,9 @@
 // Float32 products on Hopper's tensor cores in 3xTF32: the building blocks
 // of the attention kernels' float32 bodies (attention_fwd.cu's and
-// attention_bwd.cu's _tf32 kernels). Warp-level mma.sync m16n8k8 with tf32
-// operands and float32 accumulators, fed from float32 tiles in shared
-// memory.
+// attention_bwd.cu's _tf32 kernels) and the conv kernels'. Warp-level
+// mma.sync m16n8k8 with tf32 operands and float32 accumulators, fed from
+// float32 tiles in shared memory; and warpgroup wgmma m64n64k8 with a
+// tf32 A from registers (below, the conv forward's).
 //
 // 3xTF32. A float32 x is split once into two tf32 terms, hi = rna(x) and
 // lo = x - hi (rna: round to nearest, ties away, to tf32's 10-bit mantissa;
@@ -255,6 +256,51 @@ struct PairCols {
     return f;
   }
 };
+
+// ------------------------------------------------- wgmma with tf32 operands
+//
+// wgmma.mma_async m64nNk8 .tf32 takes A from registers or shared memory and
+// B from shared memory, both K-major: tf32 has no transpose bit. A
+// (M, K) = (64, 8) register operand holds, in warp w of the warpgroup, the
+// m16n8k8 A fragment of rows 16w .. 16w + 15: a[0] = (g, t), a[1] =
+// (g + 8, t), a[2] = (g, t + 4), a[3] = (g + 8, t + 4), so FragA's hi or lo
+// terms serve as they are. B is a K-major tile in hopper.cuh's 128-byte
+// swizzle: 32 tf32 values a 128-byte row are 4 k8 steps, and k-step s of a
+// ROWS-row tile is hopper::desc_k<ROWS>(tile, s), the bytes of a bf16 k16
+// step. The accumulator is hopper.cuh's m64nN layout.
+
+// d (64 x 64) = a . b + (accumulate ? d : 0), a from registers (tf32 bits:
+// the tensor core reads the top 19 bits of each), b by its descriptor.
+__device__ __forceinline__ void wgmma_n64(float (&d)[32],
+                                          const uint32_t (&a)[4], uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// Keep the compiler from moving register traffic of an A operand across a
+// wgmma fence, as hopper::fence_regs does for accumulators.
+__device__ __forceinline__ void fence_frag(FragA& f) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" : "+r"(f.x[h][i])::"memory");
+}
 
 // Two consecutive elements (r, c), (r, c + 1) of a swizzled tile (c even)
 template <int W>

@@ -4,9 +4,11 @@ send a conv and each of its passes to them.
 
 `conv3d_3x3x3(x, weight, bias)` is F.conv3d(x, weight, bias, padding=1)
 for a (Cout, Cin, 3, 3, 3) kernel at stride 1, in float32. On the card it
-launches csrc/conv3d_fprop.cu, an implicit GEMM on the tensor cores in
-3xTF32 (float32's accuracy, as the float32 attention kernels take it:
-csrc/tf32.cuh); it replaces no TPU kernel (XLA ran these convolutions), and
+launches csrc/conv3d_fprop.cu, an implicit GEMM on the tensor cores' wgmma
+in 3xTF32 (float32's accuracy, as the float32 attention kernels take it:
+csrc/tf32.cuh), after a small launch that packs the weight's hi and lo tf32
+terms into the layout the kernel stages (a workspace of the call); it
+replaces no TPU kernel (XLA ran these convolutions), and
 takes the place of cuDNN's float32 FFMA kernels, which TF32 off
 (utils/device.float32_math) leaves them. On the CPU the op's kernel is the
 plain version, F.conv3d itself. Like the attention kernels it is a
@@ -29,8 +31,8 @@ a multiple of 8, Cout of 64, W in (8, 16, 32, 64); and with a grid of at
 least MIN_BLOCKS blocks (`fprop_takes`), whether or not its gradient is
 needed. Everything else stays F.conv3d (cuDNN on the card): the bfloat16
 recipes, the (T, 1, 1) temporal merges, MNet's (2, 1, 1) convs, and the
-small grids of the deeper convs at the stream's B = 1 and at data
-parallel training's 5 rows a card.
+small grids of the 16x16 convs at the stream's B = 1 (8 tiles) and of one
+input gradient at data parallel training's 5 rows a card (20 tiles).
 
 `takes_window` is a second rule, for training on the card: a float32 conv
 of kernel (k, 1, 1) whose windows along the depth neither overlap nor
@@ -55,16 +57,26 @@ from hupr_tpu_torch.ops.cuda_build import load_library
 from hupr_tpu_torch.utils import profiling
 
 KERNEL_WIDTHS = (8, 16, 32, 64)
-CIN_MULTIPLE = 8          # input channels a stage of the kernel
-COUT_MULTIPLE = 64        # output channels a block of the kernel
-BLOCK_VOXELS = 256        # output voxels a block: 2 depths x 128 / W rows x W
-# The least grid the rule sends to the kernel. One block runs a whole K, so a
-# small grid leaves most of the card's SMs idle where cuDNN splits the work
-# finer. On the H100 SXM (132 SMs) at B = 1: 128 blocks (Cin 32, 64) took
-# 0.063 and 0.113 ms against cuDNN's 0.105 and 0.182; 32 blocks 0.107 and
-# 0.206 ms (Cin 64, 128) against 0.183 and 0.144; 8 blocks (Cin 128, 256)
-# 0.206 and 0.408 ms against 0.081 and 0.158
-MIN_BLOCKS = 64
+CIN_MULTIPLE = 8          # input channels a stage of either kernel
+COUT_MULTIPLE = 64        # output channels a block of either kernel
+# The forward kernel's tile (csrc/conv3d_fprop.cu): FPROP_VOXELS output
+# voxels, 2 depths x FPROP_VOXELS / (2 W) rows x W, by COUT_MULTIPLE channels
+FPROP_VOXELS = 256
+# The weight-gradient kernel's voxel tile (csrc/conv3d_wgrad.cu): 2 depths x
+# WGRAD_VOXELS / (2 W) rows x W, the unit its splits share out
+WGRAD_VOXELS = 256
+# The least grid (tiles of the forward kernel) the rule sends to the forward
+# kernel. One tile runs a whole K on one SM, so a small grid leaves most of
+# the card's SMs idle where cuDNN splits the work finer. On the H100 SXM
+# (132 SMs), the wgmma body against cuDNN's: 32 tiles (Cin 64, 128 at
+# 32x32, B = 1) 0.064 and 0.120 ms against 0.176 and 0.139; 40 tiles (Cin
+# 128, 256 at 16x16, B = 5) 0.129 and 0.253 against 0.218 and 0.431; 16
+# tiles (B = 2) 0.127 and 0.243 against 0.084 and 0.159; 8 tiles (B = 1)
+# 0.124 and 0.243 against 0.078 and 0.153
+MIN_BLOCKS = 32
+# The least grid the weight-gradient kernel takes (wgrad_takes), measured
+# for it at B = 1 on the mma.sync forward's rule
+WGRAD_MIN_BLOCKS = 64
 # Waves of one block an SM that the weight-gradient kernel's grid aims at,
 # so that the last wave's idle SMs cost little (wgrad_split)
 WGRAD_WAVES = 4
@@ -95,13 +107,19 @@ def _shape_fits(x_shape, weight_shape) -> bool:
             and cout > 0 and w in KERNEL_WIDTHS)
 
 
-def grid_blocks(x_shape, cout: int) -> int:
-    """Blocks of the kernel's grid for input (B, Cin, D, H, W) and `cout`
-    output channels (csrc/conv3d_fprop.cu: 2 depths x BLOCK_VOXELS / (2 W)
-    rows x 64 channels a block)."""
+def voxel_tiles(x_shape, voxels: int) -> int:
+    """Tiles of 2 depths x `voxels` / (2 W) rows x W columns that cover the
+    output of input (B, Cin, D, H, W), each in one batch element."""
     b, _, d, h, w = x_shape
-    rows = BLOCK_VOXELS // (2 * w)
-    return b * -(-d // 2) * -(-h // rows) * (cout // COUT_MULTIPLE)
+    rows = voxels // (2 * w)
+    return b * -(-d // 2) * -(-h // rows)
+
+
+def grid_blocks(x_shape, cout: int) -> int:
+    """Blocks of the forward kernel's grid for input (B, Cin, D, H, W) and
+    `cout` output channels (csrc/conv3d_fprop.cu: a tile of FPROP_VOXELS
+    voxels by COUT_MULTIPLE channels a block)."""
+    return voxel_tiles(x_shape, FPROP_VOXELS) * (cout // COUT_MULTIPLE)
 
 
 def fprop_takes(x_shape, cout: int) -> bool:
@@ -123,10 +141,9 @@ def wgrad_split(x_shape, cout: int, sms: int) -> tuple:
     """(tiles a block, splits) of the weight-gradient kernel for input (B,
     Cin, D, H, W) and `cout` channels on a card of `sms` SMs: its grid has a
     block for each chunk of 64 output and 8 input channels in each split of
-    the voxel tiles (grid_blocks' tiles of 2 depths x BLOCK_VOXELS / (2 W)
-    rows), and the splits are as many as bring the grid to about
-    WGRAD_WAVES x `sms` blocks."""
-    tiles = grid_blocks(x_shape, COUT_MULTIPLE)
+    the voxel tiles (voxel_tiles of WGRAD_VOXELS), and the splits are as
+    many as bring the grid to about WGRAD_WAVES x `sms` blocks."""
+    tiles = voxel_tiles(x_shape, WGRAD_VOXELS)
     chunks = x_shape[1] // CIN_MULTIPLE * (cout // COUT_MULTIPLE)
     per = -(-tiles // -(-WGRAD_WAVES * sms // chunks))
     return per, -(-tiles // per)
@@ -141,11 +158,11 @@ def _sm_count(device: torch.device) -> int:
 def wgrad_takes(x_shape, cout: int) -> bool:
     """Whether the weight gradient of that conv goes to its kernel: shapes
     it is built for (those of the forward), and a grid that can have
-    MIN_BLOCKS blocks."""
+    WGRAD_MIN_BLOCKS blocks."""
     cin = x_shape[1]
     return (_shape_fits(x_shape, (cout, cin, 3, 3, 3))
-            and grid_blocks(x_shape, COUT_MULTIPLE) * (cin // CIN_MULTIPLE)
-            * (cout // COUT_MULTIPLE) >= MIN_BLOCKS)
+            and voxel_tiles(x_shape, WGRAD_VOXELS) * (cin // CIN_MULTIPLE)
+            * (cout // COUT_MULTIPLE) >= WGRAD_MIN_BLOCKS)
 
 
 def routes(x_shape, cout: int) -> dict:
@@ -213,13 +230,24 @@ def _check(tensors: dict, x_shape, weight_shape,
 
 @functools.cache
 def _kernel():
-    """The ctypes function of csrc/conv3d_fprop.cu: x, weight, bias, out,
-    then b, cin, cout, depth, height, width, then the stream."""
+    """The ctypes function of csrc/conv3d_fprop.cu: x, weight, bias, the
+    packed weights' workspace, out, then b, cin, cout, depth, height,
+    width, then the stream."""
     fn = load_library("conv3d_fprop").hupr_conv3d_fprop
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 \
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
         + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
+
+
+@functools.cache
+def _packed_floats(cin: int, cout: int) -> int:
+    """Floats of the workspace in which the forward kernel's launch packs a
+    (cout, cin, 3, 3, 3) weight (csrc/conv3d_fprop.cu, pack_weights)."""
+    fn = load_library("conv3d_fprop").hupr_conv3d_fprop_packed_bytes
+    fn.argtypes = [ctypes.c_int] * 2
+    fn.restype = ctypes.c_longlong
+    return fn(cin, cout) // 4
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -232,10 +260,11 @@ def _conv_cuda(x, weight, bias):
     b, cin, d, h, w = x.shape
     cout = weight.shape[0]
     out = x.new_empty((b, cout, d, h, w))
-    x, weight = _aligned(x), _aligned(weight)
+    packed = x.new_empty((_packed_floats(cin, cout),))
+    x = _aligned(x)
     err = _kernel()(x.data_ptr(), weight.data_ptr(),
                     None if bias is None else bias.data_ptr(),
-                    out.data_ptr(), b, cin, cout, d, h, w,
+                    packed.data_ptr(), out.data_ptr(), b, cin, cout, d, h, w,
                     torch.cuda.current_stream(x.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"conv3d_3x3x3 kernel launch failed with CUDA "

@@ -63,7 +63,7 @@ def _counting(monkeypatch):
 
 def _x(cin=32, w=16, dtype=torch.float32):
     """A small map at a batch whose grid fills conv.MIN_BLOCKS (64 blocks
-    at 64 output channels and W <= 16)."""
+    at 64 output channels and W <= 16, 32 at W = 32)."""
     return torch.zeros((64, cin, 2, 4, w), dtype=dtype)
 
 
@@ -107,14 +107,14 @@ def test_takes_kernel(make, x, grad, want):
 
 
 @pytest.mark.parametrize("b,want", [
-    (1, [True, True, False, False, False, False]),
-    (7, [True, True, True, True, False, False]),
-    (8, [True] * 6)])
+    (1, [True, True, True, True, False, False]),
+    (3, [True, True, True, True, False, False]),
+    (4, [True] * 6)])
 def test_takes_kernel_needs_a_grid_that_fills_the_card(b, want):
     """The Encoder3D's convs at batch b: the kernel where its grid has at
-    least conv.MIN_BLOCKS blocks. At the stream's B = 1 those are the two
-    convs at 64x64 (128 blocks); the deeper ones (32 and 8 blocks) stay
-    F.conv3d."""
+    least conv.MIN_BLOCKS (32) tiles. At the stream's B = 1 those are the
+    convs at 64x64 (128 tiles) and 32x32 (32); the 16x16 ones (8 tiles a
+    batch element, 24 at B = 3) stay F.conv3d."""
     got, blocks = [], []
     for shape, cout, bias in ENCODER_CONVS:
         m = Conv3d(shape[1], cout, 3, 1, 1, bias=bias).requires_grad_(False)
@@ -123,6 +123,7 @@ def test_takes_kernel_needs_a_grid_that_fills_the_card(b, want):
         blocks.append(conv.grid_blocks(x.shape, cout))
     assert got == want
     assert [n // b for n in blocks] == [128, 128, 32, 32, 8, 8]
+    assert conv.MIN_BLOCKS == 32
 
 
 def test_takes_kernel_with_grad_on_and_nothing_to_differentiate():
@@ -228,8 +229,8 @@ def test_smoke_conv_table_is_the_request_convs(monkeypatch, smoke):
     table = {(s, cout): n for s, cout, _, n in smoke.CONV_SHAPES}
     assert seen == table
     assert smoke.CONV_PER_FORWARD == 32
-    assert [smoke.conv_per_forward(b) for b in (1, 4, 8, 32)] == \
-        [8, 20, 32, 32]
+    assert [smoke.conv_per_forward(b) for b in (1, 3, 4, 32)] == \
+        [20, 20, 32, 32]
     assert smoke.conv_launches_want(12 * 8, "f32") == 32 * 8
     assert smoke.conv_launches_want(12 * 8, "bf16") == 0
 
@@ -376,17 +377,18 @@ def test_dgrad_weight_makes_the_forward_the_input_gradient():
 # rows a card and the one-card batch of 20
 PASS_ROUTES = {
     5: [(True, False, True), (True, True, True), (True, True, True),
-        (True, True, True), (False, False, True), (False, False, True)],
+        (True, True, True), (True, False, True), (True, True, True)],
     20: [(True, False, True)] + [(True, True, True)] * 5}
 
 
 @pytest.mark.parametrize("b", sorted(PASS_ROUTES))
 def test_each_pass_takes_its_kernel_by_its_own_grid(b):
     """At batch b, for each Encoder3D conv: the forward where its grid has
-    conv.MIN_BLOCKS blocks (not the (2, 16, 16) convs at 5 rows, 40
-    blocks, which the module then sends to cuDNN whole); dX through the
-    forward kernel where dY's conv to Cin channels fits the forward's rule
-    (not the first conv: 32 channels), dW through its kernel; and the
+    conv.MIN_BLOCKS tiles (the (2, 16, 16) convs at 5 rows have 40); dX
+    through the forward kernel where dY's conv to Cin channels fits the
+    forward's rule (not the first conv: 32 channels; not the 128 -> 256
+    conv at 5 rows, whose dX grid has 20 tiles), dW through its kernel
+    where its grid has conv.WGRAD_MIN_BLOCKS blocks; and the
     weight-gradient kernel's splits bring its grid to two to four waves of
     the H100 SXM's 132 SMs."""
     got = []
@@ -396,11 +398,35 @@ def test_each_pass_takes_its_kernel_by_its_own_grid(b):
         got.append((r["fprop"], r["dgrad"], r["wgrad"]))
         per, splits = conv.wgrad_split(x_shape, cout, H100_SMS)
         chunks = shape[1] // conv.CIN_MULTIPLE * (cout // conv.COUT_MULTIPLE)
-        tiles = conv.grid_blocks(x_shape, conv.COUT_MULTIPLE)
+        tiles = conv.voxel_tiles(x_shape, conv.WGRAD_VOXELS)
         assert (splits - 1) * per < tiles <= splits * per
         assert (2 * H100_SMS <= splits * chunks
                 < conv.WGRAD_WAVES * H100_SMS + chunks)
     assert got == PASS_ROUTES[b]
+
+
+# (tiles a block, splits) of the weight-gradient kernel at each Encoder3D
+# conv on the H100 SXM, and its voxel tiles, at 5 rows and at batch 20: the
+# tiling its dW has been checked at on the card, bit for bit
+WGRAD_TILING = {
+    5: ([(5, 128), (10, 64), (3, 27), (5, 16), (2, 5), (2, 5)],
+        [640, 640, 80, 80, 10, 10]),
+    20: ([(20, 128), (39, 66), (10, 32), (19, 17), (5, 8), (8, 5)],
+         [2560, 2560, 320, 320, 40, 40])}
+
+
+@pytest.mark.parametrize("b", sorted(WGRAD_TILING))
+def test_wgrad_tiling_is_its_own(b):
+    """The weight-gradient kernel's splits and tiles at the Encoder3D
+    shapes stay what they are whatever the forward kernel's tile: they
+    read WGRAD_VOXELS, not the forward's FPROP_VOXELS or grid_blocks, so
+    dW keeps its order of sums."""
+    splits, tiles = WGRAD_TILING[b]
+    shapes = [((b, *shape[1:]), cout) for shape, cout, _ in ENCODER_CONVS]
+    assert [conv.wgrad_split(s, c, H100_SMS) for s, c in shapes] == splits
+    assert [conv.voxel_tiles(s, conv.WGRAD_VOXELS) for s, _ in shapes] \
+        == tiles
+    assert all(conv.wgrad_takes(s, c) for s, c in shapes)
 
 
 @pytest.mark.parametrize("b", sorted(PASS_ROUTES))
@@ -512,12 +538,13 @@ def _tf32_bits(x: torch.Tensor, round_nearest: bool) -> torch.Tensor:
 
 def conv_3xtf32(x, w, b=None):
     """The kernel's products in torch: x and w split into hi = rna(v) and
-    lo = v - hi (the tensor core reads lo's tf32 bits), the three terms
-    w_lo.x_hi, w_hi.x_lo and w_hi.x_hi each an exact float32 convolution of
-    tf32 values, summed in float32 small terms first, w_lo.x_lo dropped."""
+    lo = v - hi (the tensor core reads lo's tf32 bits), the three terms in
+    the kernel's order, x_lo.w_hi, x_hi.w_lo and x_hi.w_hi (the voxels are
+    wgmma's A, the weights its B), each an exact float32 convolution of
+    tf32 values, summed in float32 small terms first, x_lo.w_lo dropped."""
     xh, wh = _tf32_bits(x, True), _tf32_bits(w, True)
     xl, wl = _tf32_bits(x - xh, False), _tf32_bits(w - wh, False)
-    out = F.conv3d(xh, wl, padding=1) + F.conv3d(xl, wh, padding=1)
+    out = F.conv3d(xl, wh, padding=1) + F.conv3d(xh, wl, padding=1)
     out = out + F.conv3d(xh, wh, padding=1)
     return out if b is None else out + b[None, :, None, None, None]
 
@@ -560,7 +587,7 @@ def wgrad_model(x, dy, product):
     adds them."""
     b, cin, d, h, w = x.shape
     cout = dy.shape[1]
-    rows = conv.BLOCK_VOXELS // (2 * w)
+    rows = conv.WGRAD_VOXELS // (2 * w)
     dd, hh = -(-d // 2) * 2, -(-h // rows) * rows
     xp = F.pad(x, (1, 1, 1, 1 + hh - h, 1, 1 + dd - d))
     g = F.pad(dy, (0, 0, 0, hh - h, 0, dd - d))

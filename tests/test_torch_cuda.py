@@ -857,7 +857,7 @@ _ENCODER_CONVS = [((32, 8, 64, 64), 64, True), ((64, 8, 64, 64), 64, False),
                   ((128, 4, 32, 32), 128, False),
                   ((128, 2, 16, 16), 256, False),
                   ((256, 2, 16, 16), 256, False)]
-_CONV_CASES = [((b, *s), c, bias) for b in (32, 1)
+_CONV_CASES = [((b, *s), c, bias) for b in (32, 20, 5, 1)
                for s, c, bias in _ENCODER_CONVS] + [
     # ragged: depths and rows no multiple of a block's tile, W = 8
     ((3, 16, 5, 7, 8), 64, True), ((1, 8, 3, 9, 16), 128, False),
@@ -867,10 +867,11 @@ _CONV_CASES = [((b, *s), c, bias) for b in (32, 1)
 @pytest.mark.parametrize("shape,cout,bias", _CONV_CASES,
                          ids=[f"{s}-{c}" for s, c, _ in _CONV_CASES])
 def test_conv3d_kernel_matches_conv3d(cuda, shape, cout, bias):
-    """csrc/conv3d_fprop.cu at each Encoder3D shape at B = 32 and 1, and at
-    ragged ones: within conv.REL_TOL (max |error| over max |reference|) of
-    F.conv3d in float32 with TF32 off and of the float64 convolution; the
-    same bits on a second call; one launch a call."""
+    """csrc/conv3d_fprop.cu at each Encoder3D shape at B = 32, 20, 5 and 1,
+    and at ragged ones, with the shape's bias and without: within
+    conv.REL_TOL (max |error| over max |reference|) of F.conv3d in float32
+    with TF32 off and of the float64 convolution; the same bits on a second
+    call; one launch a call."""
     import torch.nn.functional as F
 
     from hupr_tpu_torch.ops import conv
@@ -880,19 +881,21 @@ def test_conv3d_kernel_matches_conv3d(cuda, shape, cout, bias):
     w = torch.randn((cout, shape[1], 3, 3, 3), device=cuda,
                     generator=gen) / (27 * shape[1]) ** 0.5
     b = torch.randn((cout,), device=cuda, generator=gen) if bias else None
-    before = conv.conv3d_3x3x3.launches
-    with torch.inference_mode():
-        got = conv.conv3d_3x3x3(x, w, b)
-        again = conv.conv3d_3x3x3(x, w, b)
-        ref = F.conv3d(x, w, b, padding=1)
-        ref64 = F.conv3d(x.double(), w.double(),
-                         None if b is None else b.double(), padding=1)
-    torch.cuda.synchronize()
-    assert conv.conv3d_3x3x3.launches - before == 2
-    assert torch.equal(got, again)
-    scale = ref64.abs().max().item()
-    assert (got - ref).abs().max().item() <= conv.REL_TOL * scale
-    assert (got.double() - ref64).abs().max().item() <= conv.REL_TOL * scale
+    for bb in ((b, None) if bias else (None,)):
+        before = conv.conv3d_3x3x3.launches
+        with torch.inference_mode():
+            got = conv.conv3d_3x3x3(x, w, bb)
+            again = conv.conv3d_3x3x3(x, w, bb)
+            ref = F.conv3d(x, w, bb, padding=1)
+            ref64 = F.conv3d(x.double(), w.double(),
+                             None if bb is None else bb.double(), padding=1)
+        torch.cuda.synchronize()
+        assert conv.conv3d_3x3x3.launches - before == 2
+        assert torch.equal(got, again)
+        scale = ref64.abs().max().item()
+        assert (got - ref).abs().max().item() <= conv.REL_TOL * scale
+        assert (got.double() - ref64).abs().max().item() \
+            <= conv.REL_TOL * scale
 
 
 _GRAD_CASES = [((b, *s), c, bias) for b in (5, 20)
@@ -1074,9 +1077,10 @@ def test_conv3d_kernel_carries_each_encoder_conv_of_a_request(cuda):
     """One served float32 request (make_e2e_infer) of 16 frames, whose
     windows give every conv a grid of conv.MIN_BLOCKS or more: the kernel
     launches once for each 3x3x3 conv of the two Encoder3Ds, 2 x 16, and
-    the counter hupr.conv3d_tf32x3 counts them. At 8 frames the 8x8 maps'
-    convs (32 blocks) stay on cuDNN: 2 x 10."""
-    for frames, want in ((16, 32), (8, 20)):
+    the counter hupr.conv3d_tf32x3 counts them (not the launch that packs
+    the weights). At 4 frames the 8x8 maps' convs (16 blocks) stay on
+    cuDNN: 2 x 10."""
+    for frames, want in ((16, 32), (4, 20)):
         run, planes = _small_request(frames)
         run(*planes)
         assert _conv_launches(lambda: run(*planes)) == (want, want)
