@@ -173,36 +173,24 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from gpubench.roofline import (PEAKS, attention_bound, card_peaks,
+                               product_route)
+from hupr_tpu_torch.ops import kernels
+from hupr_tpu_torch.ops.attention import (ATTN_TOL, REL_F32_BWD, REL_F32_FWD,
+                                          REL_IDEAL, REL_TWIN, REL_TWIN_BWD)
+
 # hupr_tpu_torch/csrc/*.cu
 KERNELS = ("attention_fwd", "attention_bwd", "attention_fwd_unfolded",
            "conv3d_fprop", "conv3d_wgrad")
 REQUESTS = 8            # timed requests of the serving slice
 FRAMES = 32             # raw frames per request and radar view (bench.py)
 ATTN_BATCH = 32         # windows per request = the attention's batch
-ATTN_TOL = 1e-4         # kernel vs plain, max abs error (float32 vs float32)
 MAXVAL_TOL = 1e-4       # pallas vs xla serving, max abs error of maxvals
 TRAIN_BATCH = 20        # the flagship's TRAINING.batchSize (bench.py)
 TRAIN_STEPS = 4         # timed train steps per path, after one warm-up step
 # backward kernel vs plain: the bar of tests/test_attention.py for the
 # Pallas backward, atol + rtol * |plain|
 GRAD_ATOL, GRAD_RTOL = 1e-3, 1e-4
-# and each float32 gradient's relative norm error against the plain version,
-# which tells 3xTF32 from one TF32 product: the CPU model of the kernel's
-# arithmetic (tests/test_torch_tf32.py) reads at most 9.3e-7 in 3xTF32 and
-# at least 4.1e-4 in one TF32 product, at two of the model's shapes; the
-# bar is 16x over the first (the card's sums run in another order, and
-# its tensor cores may not round their float32 sums to nearest) and 27x
-# under the second
-REL_F32_BWD = 2.0 ** -16
-# the float32 forward's output against the plain version, the same way: the
-# CPU model of its 3xTF32 arithmetic (tests/test_torch_tf32.py) reads at
-# most 7.3e-7 on logits of unit spread and 2.6e-6 on N(0, 1) inputs (a
-# nearly one-hot softmax, as check_attention draws them), and at least
-# 3.95e-4 in one TF32 product; the bar is 6x over the worst of the first and
-# 26x under the second. It holds the unfolded forward too, whose 3xTF32
-# model reads at most 7.3e-7 and 2.6e-6 the same ways, and one TF32 product
-# at least 4.1e-4
-REL_F32_FWD = 2.0 ** -16
 LSE_ATOL, LSE_RTOL = 1e-4, 1e-5
 # kernel path vs plain-attention path over the train steps: the weights
 # within the bars of tests/test_reference_parity.py in both compute dtypes
@@ -241,17 +229,6 @@ CONV_PER_FORWARD = sum(n for *_, n in CONV_SHAPES)
 # the bfloat16 modes: (name, input dtype, bf16_ops)
 BF16_MODES = (("bf16", "bfloat16", False), ("f32_bf16ops", "float32", True),
               ("bf16_bf16ops", "bfloat16", True))
-# bfloat16 bars, relative norm errors (bfloat16 rounds to 2^-9 relative):
-# kernel vs the float32 ideal on the same values 2^-8.5 (the bar of
-# tests/test_attention.py for bfloat16 gradients); kernel vs its twin 2^-7.5
-# (each within 2^-8.5 of the ideal; they round p against other maxima)
-REL_IDEAL, REL_TWIN = 2.0 ** -8.5, 2.0 ** -7.5
-# The backward and its twin share every rounding point and the forward's out
-# and lse; they differ only where a float32 sum in another order lands on
-# the other side of a bfloat16 rounding boundary (<= 3.6e-5 relative on the
-# H100). Moving one rounding point (p, dS or D rounded or not) moves the
-# twin by more (tests/test_torch_bf16.py::test_bwd_twin_bar_sees_rounding).
-REL_TWIN_BWD = 2.0 ** -12
 # independent inputs per (mode, shape) for the bfloat16 error readings: a
 # relative norm error over >= 1.3M roundings varies by about 1 % from draw
 # to draw, so the worst of three sits where the bar expects it
@@ -323,26 +300,6 @@ STREAM_FRAMES, STREAM_WARM, STREAM_TIMED = 32, 3, 20
 # sums run in other orders and a near-tied argmax may flip
 STREAM_AGREE = {"f32": 0.99, "bf16": 0.95}
 
-# Peaks of each H100 variant at its full power limit, dense: float32
-# FMA-pipe, bfloat16 and TF32 tensor-core flop/s and the memory rate
-# (NVIDIA's data sheet); the SFU's exp rate, 16 a clock per SM (CUDA
-# programming guide, arithmetic throughput, compute capability 9.0) x SMs x
-# boost clock
-PEAKS = {"PCIe": {"f32": 51.2e12, "bf16": 756e12, "tf32": 378e12,
-                  "bytes": 2.0e12, "sfu": 16 * 114 * 1.755e9},
-         "NVL": {"f32": 60.0e12, "bf16": 835e12, "tf32": 417.5e12,
-                 "bytes": 3.9e12, "sfu": 16 * 132 * 1.785e9},
-         "SXM": {"f32": 66.9e12, "bf16": 989e12, "tf32": 495e12,
-                 "bytes": 3.35e12, "sfu": 16 * 132 * 1.98e9}}
-
-
-def card_peaks(name: str):
-    for key in ("PCIe", "NVL"):
-        if key in name:
-            return key, PEAKS[key]
-    return "SXM", PEAKS["SXM"]
-
-
 def smi_line() -> str:
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -374,50 +331,6 @@ def sdpa(q, k, m):
 
     return F.scaled_dot_product_attention(q[:, None], k[:, None], m[:, None],
                                           scale=1.0)[:, 0]
-
-
-def product_route(a: str, b: str, peaks):
-    """(pipe, seconds per flop) of one product of operands of precisions a
-    and b ("f32" or "bf16") at the cheapest route that keeps them: two
-    bfloat16 operands one tensor-core product; a float32 operand against a
-    bfloat16 one two bfloat16 products (the float32 side split into hi and
-    lo terms) or the FMA pipe; two float32 operands three TF32 products
-    (3xTF32) or the FMA pipe, whichever is faster."""
-    fma = 1 / peaks["f32"]
-    if a == b == "bf16":
-        return "tensor", 1 / peaks["bf16"]
-    tensor = 2 / peaks["bf16"] if "bf16" in (a, b) else 3 / peaks["tf32"]
-    return ("tensor", tensor) if tensor <= fma else ("fma", fma)
-
-
-def attention_bound(kind: str, b: int, n: int, c: int, mode: str, peaks,
-                    lse: bool = False):
-    """(bound ms, bound_by) of one attention call in `mode`: the larger of
-    the bytes term (each input read once, each output written once, at the
-    memory rate) and the operations term, the slowest of the pipes the work
-    needs, which run side by side: the tensor cores, the float32 FMA pipes
-    and the SFU for the B*N^2 exps. Each product of 2*B*N^2*C flops goes
-    to its cheapest route (product_route). `kind` is "fwd" or "unfolded"
-    (logits, p.m) or "bwd" (logits, dP, then dq, dk, dm). The logits and dP
-    take the mode's input operands (bfloat16 but in mode f32); p and dS are
-    float32 but under bf16_ops."""
-    product = 2 * b * n * n * c
-    ops = "bf16" if mode.endswith("bf16ops") else "f32"
-    ins = "f32" if mode == "f32" else "bf16"
-    pairs = [(ins, ins), (ops, ins)] if kind != "bwd" \
-        else [(ins, ins)] * 2 + [(ops, ins)] * 3
-    terms = {"tensor": 0.0, "fma": 0.0, "sfu": b * n * n / peaks["sfu"]}
-    for pair in pairs:
-        pipe, per_flop = product_route(*pair, peaks)
-        terms[pipe] += product * per_flop
-    size = 2 if mode.startswith("bf16") else 4
-    if kind == "bwd":     # k, q, m, out, g and lse read; dk, dq, dm written
-        nbytes = 8 * b * n * c * size + 4 * b * n
-    else:                 # k, q, m read; out (and lse) written
-        nbytes = 4 * b * n * c * size + (4 * b * n if lse else 0)
-    terms["bytes"] = nbytes / peaks["bytes"]
-    worst = max(terms, key=terms.get)
-    return 1e3 * terms[worst], "bytes" if worst == "bytes" else "operations"
 
 
 def check_attention(torch, peaks):
@@ -1015,14 +928,13 @@ def serve_slice(torch, requests, card: str, cfg=None, label: str = "slice",
         fn(*requests[0])
     # in turns on one card: plain route, kernels, plain route
     _, elapsed_x1 = serve(run_x)
-    attention.reset_launch_counts()
-    conv.reset_launch_counts()
+    kernels.reset_launch_counts()
     outs, elapsed = serve(run)
     launches = attention.attention_fwd.launches
     by_mode = dict(attention.attention_fwd.launches_by_mode)
     bwd_launches = attention.attention_bwd.launches
     conv_launches = conv.conv3d_3x3x3.launches
-    conv.reset_launch_counts()
+    kernels.reset_launch_counts()
     outs_x, elapsed_x2 = serve(run_x)
     conv_launches_x = conv.conv3d_3x3x3.launches
 
@@ -1266,8 +1178,7 @@ def train_slice(torch, card: str, make_cfg=None, label: str = "train",
     for name in ("pallas", "xla"):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        attention.reset_launch_counts()
-        conv.reset_launch_counts()
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         drive(paths[name], TRAIN_STEPS)
         torch.cuda.synchronize()
@@ -1405,7 +1316,7 @@ def pallas_bf16_phase(torch, requests, card: str, outs_f32):
                              ds.radar_params(), duration=FRAMES,
                              group=ds.numGroupFrames,
                              num_frames=ds.numFrames)
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         outs = [run(*req) for req in reqs]
         torch.cuda.synchronize()
         serve_fwd = dict(attention.attention_fwd.launches_by_mode)
@@ -1426,7 +1337,7 @@ def pallas_bf16_phase(torch, requests, card: str, outs_f32):
             tx = make_optimizer(cfg, model)
             step = make_train_step(model, tx, t.lossDecay, (
                 ds.numKeypoints, ds.heatmapSize, ds.imgSize))
-            attention.reset_launch_counts()
+            kernels.reset_launch_counts()
             _, metrics = step(TrainState(model, tx), batch, t.lr, 0.0)
             steps[impl] = (metrics["loss"].item(),
                            projection_grads(torch, model),
@@ -1514,7 +1425,7 @@ def microbench_phase(torch, peaks):
             raise AssertionError(f"attention_fwd_unfolded {mode}: two calls "
                                  f"gave different bits")
     del k, q, m, kb, qb, mb
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     times = microbench(b, n, c, inner=5, reps=2)
     launches = dict(attention.attention_fwd_unfolded.launches_by_mode)
     print(json.dumps({"microbench": {"B": b, "N": n, "C": c,
@@ -1717,7 +1628,7 @@ def runner_phase(torch, card: str):
             return run(runner_args(name), cfgs[name])
 
         # the main path: the CLI's flow through the kernels
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         trained, train_s = timed(torch, lambda: cli_run("pallas"))
         launches = {"attention_fwd": attention.attention_fwd.launches,
                     "attention_bwd": attention.attention_bwd.launches}
@@ -2047,8 +1958,7 @@ def stream_phase(torch, card: str):
 
         # the main path: one sequence through the graph step
         est = estimator(True)
-        attention.reset_launch_counts()
-        conv.reset_launch_counts()
+        kernels.reset_launch_counts()
         pred, maxv = stream_sequence(est, frames)
         torch.cuda.synchronize()
         launches = wrapper_launches(attention)["attention_fwd"]
@@ -2065,8 +1975,7 @@ def stream_phase(torch, card: str):
             est = estimator(graph)
             for _ in range(STREAM_WARM):
                 est.process_frame(*frame)
-            attention.reset_launch_counts()
-            conv.reset_launch_counts()
+            kernels.reset_launch_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             for _ in range(STREAM_TIMED):
@@ -2433,7 +2342,7 @@ def runner_fast_phase(torch, card: str):
 
         # the main path: the CLI's flow on the fast recipe
         printed = io.StringIO()
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         with contextlib.redirect_stdout(printed):
             trained, train_s = timed(torch, lambda: run(runner_args("fast"),
                                                         cfg))
@@ -2713,7 +2622,7 @@ def train_max_phase(torch, card: str, peaks):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         resident = torch.cuda.memory_allocated()
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
         for _ in range(MAX_STEPS):
             p["state"], metrics = p["step"](p["state"], batch, t.lr, 0.0)
@@ -2819,7 +2728,7 @@ def learn_run(torch, cfg, state, step, epoch, steps: int, lr: float,
     epochs = itertools.chain.from_iterable(
         epoch() for _ in itertools.count())
     losses = []
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     t0 = time.perf_counter()
     for batch in itertools.islice(epochs, steps):
         state, metrics = step(state, batch, lr, 0.0)
@@ -3130,7 +3039,7 @@ def front_end_phase(torch, card: str):
         rc_missing, _ = parity_audit.run_audit(parse(["--dir", "front_end"]),
                                                cfg)
         seed_checkpoint(cfg, "front_end", "model_best.pth")
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         (rc, report), audit_s = timed(torch, lambda: parity_audit.run_audit(
             parse(["--dir", "front_end"]), cfg))
         audit_launches = wrapper_launches(attention)["attention_fwd"]
@@ -3159,7 +3068,7 @@ def front_end_phase(torch, card: str):
         args = live_serve.build_arg_parser().parse_args(
             ["--checkpoint", ckpt, "--frames", str(frames)])
         live_cfg = flagship_serving_config()
-        attention.reset_launch_counts()
+        kernels.reset_launch_counts()
         result = live_serve.serve(args, live_cfg, streams=streams,
                                   native=True)
         live_launches = wrapper_launches(attention)["attention_fwd"]
@@ -3385,7 +3294,7 @@ def dp_run(torch, kind: str, mesh, w0: dict, steps: int = DP_STEPS,
             model, tx, geometry, mesh=None if one else mesh,
             radar_params=d.radar_params(), num_frames=d.numFrames)
         batch = dp_chunk_batch(torch, cfg, mesh.world, mesh.rank)
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     losses, seconds, zero = [], [], None
     for i in range(steps):
         torch.cuda.synchronize()
@@ -3729,7 +3638,7 @@ def dp_runner_worker(torch, root: str) -> dict:
 
     runner_mod.Runner.save_loss_list = logged
     AsyncCheckpointer.save = saved
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     runner, seconds = timed(torch, lambda: run(
         runner_args("mh"), dp_runner_config(os.path.join(root, "data"))))
     return {"losses": losses, "saves": saves, "aps": runner.epoch_aps,
@@ -3855,8 +3764,7 @@ def shard_serve(torch, mesh, mode: str, spatial: int) -> dict:
     requests = shard_requests(torch, cfg, FRAMES, 1 + SHARD_REQUESTS, 7)
     run(*requests[0])
     torch.cuda.synchronize()
-    attention.reset_launch_counts()
-    conv.reset_launch_counts()
+    kernels.reset_launch_counts()
     outs, ms = [], []
     for req in requests[1:]:
         t0 = time.perf_counter()
@@ -3868,8 +3776,7 @@ def shard_serve(torch, mesh, mode: str, spatial: int) -> dict:
     frames, duration = SHARD_SMALL
     small = shard_requests(torch, cfg, frames, 1, 8)[0]
     run_small = entry(duration)
-    attention.reset_launch_counts()
-    conv.reset_launch_counts()
+    kernels.reset_launch_counts()
     outs.append(run_small(*small))
     torch.cuda.synchronize()
     return {"outs": [tuple(t.cpu() for t in o) for o in outs], "ms": ms,
@@ -3897,8 +3804,7 @@ def shard_seq_eval(torch, mesh, data: str) -> dict:
     if (ev.mesh is None) != (mesh is None):
         raise AssertionError("SequenceEvaluator's gate refused the mesh")
     ds = get_dataset("test", cfg)
-    attention.reset_launch_counts()
-    conv.reset_launch_counts()
+    kernels.reset_launch_counts()
     batches, seconds = timed(torch, lambda: [
         ({k: v.cpu() for k, v in out.items()}, ids, t)
         for out, ids, _, t in ev.eval_batches(ds)])
@@ -4141,7 +4047,7 @@ def graft_phase(torch, card: str) -> dict:
 
     forward(hori, vert)                  # warm-up: cuDNN plans, caches
     plain(hori, vert)
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     outs, ms = timed(forward)
     by_mode = dict(attention.attention_fwd.launches_by_mode)
     bwd = attention.attention_bwd.launches
@@ -4210,12 +4116,11 @@ _EXPORT_FRESH = """
 import json, sys
 import torch
 from hupr_tpu_torch.engine.export import load_artifact
-from hupr_tpu_torch.ops import attention, conv
+from hupr_tpu_torch.ops import attention, conv, kernels
 serve = load_artifact(sys.argv[1])
 request = torch.load(sys.argv[2])
 serve(*request)
-attention.reset_launch_counts()
-conv.reset_launch_counts()
+kernels.reset_launch_counts()
 pred, maxv = serve(*request)
 torch.cuda.synchronize()
 torch.save((pred.cpu(), maxv.cpu()), sys.argv[3])
@@ -4269,8 +4174,7 @@ def export_phase(torch, requests, card: str, cfg, label: str, mode: str,
 
     serve(*requests[0])                     # warm-up: cuDNN plans, caches
     _, live1 = timed_serve(run)
-    attention.reset_launch_counts()
-    conv.reset_launch_counts()
+    kernels.reset_launch_counts()
     outs, elapsed = timed_serve(serve)
     by_mode = dict(attention.attention_fwd.launches_by_mode)
     bwd = attention.attention_bwd.launches

@@ -71,7 +71,7 @@ from hupr_tpu_torch.engine.seq_eval import (make_adc_sequence_encoder,
 from hupr_tpu_torch.engine.steps import (TrainState, make_eval_step,
                                          make_optimizer, make_train_step)
 from hupr_tpu_torch.models.hupr import build_model
-from hupr_tpu_torch.ops import attention
+from hupr_tpu_torch.ops import attention, kernels
 from hupr_tpu_torch.ops.dsp import RadarParams
 from hupr_tpu_torch.parallel import multihost
 from hupr_tpu_torch.parallel.halo import frame_block
@@ -664,7 +664,7 @@ def flagship_shapes(rank: int, world: int = SHAPE_WORLD, programs=PROGRAMS,
     dist.init_process_group("fake", store=FakeStore(), rank=rank,
                             world_size=world)
     try:
-        with attention.meta_stands_for_card():
+        with kernels.meta_stands_for_card():
             runs = _ShapePass(Mesh(rank, world, torch.device("meta")),
                               serve_frames)
             return {name: getattr(runs, name)() for name in programs}

@@ -47,27 +47,55 @@ makes two passes over the key tiles, each row's max and sum, then the
 recomputed logits' normalized softmax times m: three products where the
 TPU body makes two, whose 4*B*N^2*C flops its bound counts.
 
-Each kernel is a torch.library custom op in the namespace hupr_tpu_torch
-(`attention_fwd`, `attention_fwd_lse`, `attention_bwd`,
-`attention_fwd_unfolded`): the dispatcher hands CUDA tensors to the launch
-and CPU tensors to the plain twin, and a program traced by torch.export
-keeps the op as one node, so an artifact exported on a CPU host launches
-the kernel on the card (engine/export.py). The public wrappers call the
-ops and keep the launch counts.
+Each kernel is a custom op of ops/kernels, the seam that binds, checks,
+launches and counts every kernel of csrc/ (`attention_fwd`,
+`attention_fwd_lse`, `attention_bwd`, `attention_fwd_unfolded`): the
+dispatcher hands CUDA tensors to the launch and CPU tensors to the plain
+twin, and a program traced by torch.export keeps the op as one node, so
+an artifact exported on a CPU host launches the kernel on the card
+(engine/export.py). The public wrappers call the ops; their launches are
+counted on them (kernels.counted).
 """
 
 from __future__ import annotations
 
-import contextlib
-import ctypes
-import functools
-
 import torch
 
-from hupr_tpu_torch.ops.cuda_build import load_library
+from hupr_tpu_torch.ops import kernels
 
 KERNEL_CHANNELS = (64, 128, 256)
 KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+# The card's bars for the kernels (chip_smoke.py, tests/test_torch_cuda.py).
+ATTN_TOL = 1e-4         # kernel vs plain, max abs error (float32 vs float32)
+# Each float32 gradient's relative norm error against the plain version,
+# which tells 3xTF32 from one TF32 product: the CPU model of the kernel's
+# arithmetic (tests/test_torch_tf32.py) reads at most 9.3e-7 in 3xTF32 and
+# at least 4.1e-4 in one TF32 product, at two of the model's shapes; the
+# bar is 16x over the first (the card's sums run in another order, and
+# its tensor cores may not round their float32 sums to nearest) and 27x
+# under the second
+REL_F32_BWD = 2.0 ** -16
+# the float32 forward's output against the plain version, the same way: the
+# CPU model of its 3xTF32 arithmetic (tests/test_torch_tf32.py) reads at
+# most 7.3e-7 on logits of unit spread and 2.6e-6 on N(0, 1) inputs (a
+# nearly one-hot softmax, as chip_smoke.check_attention draws them), and at
+# least 3.95e-4 in one TF32 product; the bar is 6x over the worst of the
+# first and 26x under the second. It holds the unfolded forward too, whose
+# 3xTF32 model reads at most 7.3e-7 and 2.6e-6 the same ways, and one TF32
+# product at least 4.1e-4
+REL_F32_FWD = 2.0 ** -16
+# bfloat16 bars, relative norm errors (bfloat16 rounds to 2^-9 relative):
+# kernel vs the float32 ideal on the same values 2^-8.5 (the bar of
+# tests/test_attention.py for bfloat16 gradients); kernel vs its twin 2^-7.5
+# (each within 2^-8.5 of the ideal; they round p against other maxima)
+REL_IDEAL, REL_TWIN = 2.0 ** -8.5, 2.0 ** -7.5
+# The backward and its twin share every rounding point and the forward's out
+# and lse; they differ only where a float32 sum in another order lands on
+# the other side of a bfloat16 rounding boundary (<= 3.6e-5 relative on the
+# H100). Moving one rounding point (p, dS or D rounded or not) moves the
+# twin by more (tests/test_torch_bf16.py::test_bwd_twin_bar_sees_rounding).
+REL_TWIN_BWD = 2.0 ** -12
 
 # matmul count per call, as multiples of one (N,N)x(N,C) product's 2*N*N*C
 # flops: the forward runs k q^T and p^T m (2); the backward recomputes the
@@ -180,215 +208,100 @@ def attention_unfolded_plain(k, q, m, bf16_ops: bool = False):
     return torch.einsum("bic,bij->bjc", m, a).to(dtype)
 
 
-def _check(op, tensors, shape, dtypes=KERNEL_DTYPES,
-           device_types=("cuda",)):
-    """Raise unless every tensor is a contiguous tensor of the (B, N, C)
-    `shape` (a (B, N) float32 shape for names starting with 'lse'), all of
-    one dtype in `dtypes`, with C one the kernels are built for, on a
-    device of a type in `device_types` (the card's)."""
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"{op} inputs on different devices: {devices}")
-    kinds = {t.dtype for name, t in tensors.items()
-             if not name.startswith("lse")}
-    if len(kinds) != 1 or not kinds <= set(dtypes):
-        raise TypeError(f"{op} takes inputs of one dtype in {dtypes}; got "
-                        f"{ {n: t.dtype for n, t in tensors.items()} }")
+def _check(op, tensors, device_types, dtypes=KERNEL_DTYPES):
+    """Raise unless the kernel of `op` takes `tensors` ({name: tensor}):
+    kernels.check's rules, the LSE float32; each of m's (B, N, C) shape,
+    the LSE (B, N); C one the kernels are built for."""
+    kernels.check(op, tensors, dtypes, device_types, float32=("lse",))
+    shape = tensors["m"].shape
     for name, t in tensors.items():
-        want = shape[:2] if name.startswith("lse") else shape
-        if name.startswith("lse") and t.dtype != torch.float32:
-            raise TypeError(f"{op}: {name} must be float32, not {t.dtype}")
-        if len(shape) != 3 or tuple(t.shape) != tuple(want):
+        want = shape[:2] if name == "lse" else shape
+        if len(shape) != 3 or t.shape != want:
             raise ValueError(f"{op}: {name} has shape {tuple(t.shape)}, "
-                             f"expected {tuple(want)} for (B, N, C) inputs")
-        if not t.is_contiguous():
-            raise ValueError(f"{op} takes contiguous tensors; {name} is not")
+                             f"expected {tuple(want)} for (B, N, C) "
+                             f"inputs")
     if shape[2] not in KERNEL_CHANNELS:
         raise ValueError(f"{op} is built for C in {KERNEL_CHANNELS}; got "
                          f"C={shape[2]}")
-    device = devices.pop()
-    if device.type not in device_types:
-        raise ValueError(f"{op} runs on CUDA or CPU, not {device}")
-
-
-@functools.cache
-def _kernel(name: str):
-    """The ctypes function of csrc/<name>.cu: pointers, then b, n, c, the
-    mode (inputs bfloat16, bf16_ops), then the stream."""
-    pointers = {"attention_fwd": 5, "attention_bwd": 10,
-                "attention_fwd_unfolded": 4}[name]
-    fn = getattr(load_library(name), f"hupr_{name}")
-    fn.argtypes = [ctypes.c_void_p] * pointers + [ctypes.c_int] * 5 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-def _launch(fn, mode: str, pointers, shape, stream):
-    """Launch the kernel of wrapper `fn` in `mode` on `stream` and count it;
-    raise if the C function returns a CUDA error."""
-    name = fn.__name__
-    err = _kernel(name)(*pointers, *shape, int(mode.startswith("bf16")),
-                        int(mode.endswith("bf16ops")), stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch in mode {mode} failed "
-                           f"with CUDA error {err}")
-    fn.launches += 1
-    fn.launches_by_mode[mode] = fn.launches_by_mode.get(mode, 0) + 1
-
-
-def reset_launch_counts() -> None:
-    """Zero every kernel wrapper's launch counts."""
-    for fn in (attention_fwd, attention_bwd, attention_fwd_unfolded):
-        fn.launches = 0
-        fn.launches_by_mode = {}
 
 
 def _operand_tensors(tensors, mode: str):
     """The operands as the kernels read them, on 16-byte boundaries
-    (cp.async's copies; a tensor that starts off one is copied). The
-    tensor-core bf16 modes (all but 'f32') take bfloat16 operands:
-    f32_bf16ops rounds its float32 inputs here, one cast each, to the values
-    the TPU kernel rounds on load."""
-    out = []
-    for t in tensors:
-        if mode != "f32":
-            t = t.to(torch.bfloat16)
-        out.append(t.clone() if t.data_ptr() % 16 else t)
-    return out
+    (kernels.aligned). The tensor-core bf16 modes (all but 'f32') take
+    bfloat16 operands: f32_bf16ops rounds its float32 inputs here, one cast
+    each, to the values the TPU kernel rounds on load."""
+    return [kernels.aligned(t if mode == "f32" else t.to(torch.bfloat16))
+            for t in tensors]
 
 
-def _stream(t: torch.Tensor):
-    return torch.cuda.current_stream(t.device).cuda_stream
-
-
-# The kernels as torch.library custom ops, so that a traced program
-# (engine/export.py) holds them as opaque nodes: each op's CUDA kernel is
-# the launch below, its CPU kernel the plain twin, and its fake kernel the
-# shapes and dtypes. The dispatcher picks by the inputs' device; on any
-# other device (meta) the fake kernel refuses what the CUDA kernel would.
-NAMESPACE = "hupr_tpu_torch"
-
-
-def _op(name: str, schema: str, cpu, cuda, fake):
-    op = torch.library.custom_op(f"{NAMESPACE}::{name}", cpu,
-                                 mutates_args=(), device_types="cpu",
-                                 schema=schema)
-    op.register_kernel("cuda", cuda)
-    op.register_fake(fake)
-    return op
-
-
-_meta_as_card = False
-
-
-@contextlib.contextmanager
-def meta_stands_for_card():
-    """Within it, the ops take meta tensors as the card's: each is held to
-    what the CUDA kernel takes (shapes, dtypes, channels) and answers with
-    its output's shape, launching nothing. The flagship shape pass
-    (graft_entry.flagship_shapes) runs the programs on meta tensors so.
-    Outside it a meta tensor raises, as on any device without a kernel."""
-    global _meta_as_card
-    saved, _meta_as_card = _meta_as_card, True
-    try:
-        yield
-    finally:
-        _meta_as_card = saved
-
-
-def _fake_check(op, tensors, shape, dtypes=KERNEL_DTYPES):
-    """The fake kernels' check: off the CPU, what _check holds the CUDA
-    kernel to (a fake tensor carries the device it stands for; a meta
-    tensor stands for the card's within meta_stands_for_card)."""
-    if next(iter(tensors.values())).device.type != "cpu":
-        _check(op, tensors, shape, dtypes, device_types=(
-            ("cuda", "meta") if _meta_as_card else ("cuda",)))
+def _launch(wrapper, mode: str, tensors, shape) -> None:
+    """Launch the kernel of `wrapper` (csrc/<its name>.cu) in `mode`: the
+    C function takes b, n, c, then whether the inputs are bfloat16 and
+    whether the operands are (bf16_ops)."""
+    kernels.launch(wrapper, wrapper.__name__, tensors,
+                   (*shape, int(mode.startswith("bf16")),
+                    int(mode.endswith("bf16ops"))), mode)
 
 
 def _fwd_cuda(k, q, m, bf16_ops: bool, with_lse: bool):
-    _check("attention_fwd", {"k": k, "q": q, "m": m}, m.shape)
     b, n, c = m.shape
     mode = kernel_mode(m.dtype, bf16_ops)
     out = torch.empty_like(m)
     lse = torch.empty((b, n), dtype=torch.float32, device=m.device) \
         if with_lse else None
-    k, q, m = _operand_tensors((k, q, m), mode)
     _launch(attention_fwd, mode,
-            (k.data_ptr(), q.data_ptr(), m.data_ptr(), out.data_ptr(),
-             None if lse is None else lse.data_ptr()), (b, n, c), _stream(m))
+            (*_operand_tensors((k, q, m), mode), out, lse), (b, n, c))
     return (out, lse) if with_lse else out
 
 
-def _fwd_fake(k, q, m, bf16_ops: bool, with_lse: bool):
-    _fake_check("attention_fwd", {"k": k, "q": q, "m": m}, m.shape)
-    out = torch.empty_like(m)
-    if with_lse:
-        return out, m.new_empty(m.shape[:2], dtype=torch.float32)
-    return out
-
-
 _FWD = "(Tensor k, Tensor q, Tensor m, bool bf16_ops) -> "
-_fwd_op = _op(
+_fwd_op = kernels.op(
     "attention_fwd", _FWD + "Tensor",
     lambda k, q, m, bf16_ops: attention_plain(k, q, m, False, bf16_ops),
     lambda k, q, m, bf16_ops: _fwd_cuda(k, q, m, bf16_ops, False),
-    lambda k, q, m, bf16_ops: _fwd_fake(k, q, m, bf16_ops, False))
-_fwd_lse_op = _op(
+    lambda k, q, m, bf16_ops: torch.empty_like(m), _check)
+_fwd_lse_op = kernels.op(
     "attention_fwd_lse", _FWD + "(Tensor, Tensor)",
     lambda k, q, m, bf16_ops: attention_plain(k, q, m, True, bf16_ops),
     lambda k, q, m, bf16_ops: _fwd_cuda(k, q, m, bf16_ops, True),
-    lambda k, q, m, bf16_ops: _fwd_fake(k, q, m, bf16_ops, True))
+    lambda k, q, m, bf16_ops: (torch.empty_like(m), m.new_empty(
+        m.shape[:2], dtype=torch.float32)), _check)
 
 
 def _bwd_cuda(k, q, m, out, lse, g, bf16_ops: bool):
-    _check("attention_bwd", {"k": k, "q": q, "m": m, "out": out,
-                             "lse": lse, "g": g}, m.shape)
     b, n, c = m.shape
     mode = kernel_mode(m.dtype, bf16_ops)
     dk, dq, dm = (torch.empty_like(m) for _ in range(3))
     dvec = torch.empty((b, n), dtype=torch.float32, device=m.device)
     k, q, m, g = _operand_tensors((k, q, m, g), mode)
-    _launch(attention_bwd, mode,
-            [t.data_ptr() for t in (k, q, m, out, lse, g, dk, dq, dm, dvec)],
-            (b, n, c), _stream(m))
+    _launch(attention_bwd, mode, (k, q, m, out, lse, g, dk, dq, dm, dvec),
+            (b, n, c))
     return dk, dq, dm
 
 
-def _bwd_fake(k, q, m, out, lse, g, bf16_ops: bool):
-    _fake_check("attention_bwd", {"k": k, "q": q, "m": m, "out": out,
-                                  "lse": lse, "g": g}, m.shape)
-    return tuple(torch.empty_like(k) for _ in range(3))
-
-
-_bwd_op = _op(
+_bwd_op = kernels.op(
     "attention_bwd", "(Tensor k, Tensor q, Tensor m, Tensor out, Tensor lse,"
     " Tensor g, bool bf16_ops) -> (Tensor, Tensor, Tensor)",
-    attention_bwd_plain, _bwd_cuda, _bwd_fake)
+    attention_bwd_plain, _bwd_cuda,
+    lambda k, *_: tuple(torch.empty_like(k) for _ in range(3)), _check)
 
 
 def _unfolded_cuda(k, q, m, bf16_ops: bool):
-    _check("attention_fwd_unfolded", {"k": k, "q": q, "m": m}, m.shape,
-           dtypes=(torch.float32,))
-    b, n, c = m.shape
     mode = kernel_mode(m.dtype, bf16_ops)
     out = torch.empty_like(m)
-    k, q, m = _operand_tensors((k, q, m), mode)
     _launch(attention_fwd_unfolded, mode,
-            [t.data_ptr() for t in (k, q, m, out)], (b, n, c), _stream(m))
+            (*_operand_tensors((k, q, m), mode), out), m.shape)
     return out
 
 
-def _unfolded_fake(k, q, m, bf16_ops: bool):
-    _fake_check("attention_fwd_unfolded", {"k": k, "q": q, "m": m}, m.shape,
-                dtypes=(torch.float32,))
-    return torch.empty_like(m)
+_unfolded_op = kernels.op(
+    "attention_fwd_unfolded", _FWD + "Tensor", attention_unfolded_plain,
+    _unfolded_cuda, lambda k, q, m, bf16_ops: torch.empty_like(m),
+    lambda op, tensors, device_types: _check(op, tensors, device_types,
+                                             (torch.float32,)))
 
 
-_unfolded_op = _op("attention_fwd_unfolded", _FWD + "Tensor",
-                   attention_unfolded_plain, _unfolded_cuda, _unfolded_fake)
-
-
+@kernels.counted
 def attention_fwd(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
                   with_lse: bool = False, bf16_ops: bool = False):
     """(B, N, C) x3 -> out, or (out, lse) with `with_lse`; float32 or
@@ -405,6 +318,7 @@ def attention_fwd(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
     return (_fwd_lse_op if with_lse else _fwd_op)(k, q, m, bf16_ops)
 
 
+@kernels.counted
 def attention_bwd(k, q, m, out, lse, g, bf16_ops: bool = False):
     """(dk, dq, dm) for output gradient g, from the forward's out and lse,
     in the inputs' dtype (accumulated in float32). The op
@@ -414,6 +328,7 @@ def attention_bwd(k, q, m, out, lse, g, bf16_ops: bool = False):
     return _bwd_op(k, q, m, out, lse, g, bf16_ops)
 
 
+@kernels.counted
 def attention_fwd_unfolded(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
                            bf16_ops: bool = False) -> torch.Tensor:
     """The microbenchmark's unfolded forward (softmax normalized before the
@@ -423,9 +338,6 @@ def attention_fwd_unfolded(k: torch.Tensor, q: torch.Tensor, m: torch.Tensor,
     aligned to 16 bytes, rounded to bfloat16 under `bf16_ops`
     (_operand_tensors), or raise. Nothing on the model's path calls it."""
     return _unfolded_op(k, q, m, bf16_ops)
-
-
-reset_launch_counts()
 
 
 class FusedSpatialAttention(torch.autograd.Function):

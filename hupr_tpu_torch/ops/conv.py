@@ -11,10 +11,10 @@ terms into the layout the kernel stages (a workspace of the call); it
 replaces no TPU kernel (XLA ran these convolutions), and
 takes the place of cuDNN's float32 FFMA kernels, which TF32 off
 (utils/device.float32_math) leaves them. On the CPU the op's kernel is the
-plain version, F.conv3d itself. Like the attention kernels it is a
-torch.library custom op, `hupr_tpu_torch::conv3d_3x3x3`, so that
-torch.export keeps it as one node (engine/export.py) and the flagship shape
-pass reaches its fake kernel (attention.meta_stands_for_card).
+plain version, F.conv3d itself. Like the attention kernels it is a custom
+op of ops/kernels, `hupr_tpu_torch::conv3d_3x3x3`, so that torch.export
+keeps it as one node (engine/export.py) and the flagship shape pass
+reaches its fake kernel (kernels.meta_stands_for_card).
 
 Its gradient (`_backward`), given the output gradient dY, takes each pass
 where that pass's own rule sends it: dX is the forward kernel run on dY
@@ -46,15 +46,12 @@ conv took 40 ms a call at batch 20 (its direct kernel at 0.02 TFLOP/s).
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import torch
 import torch.nn.functional as F
 
-from hupr_tpu_torch.ops import attention
-from hupr_tpu_torch.ops.cuda_build import load_library
-from hupr_tpu_torch.utils import profiling
+from hupr_tpu_torch.ops import kernels
 
 KERNEL_WIDTHS = (8, 16, 32, 64)
 CIN_MULTIPLE = 8          # input channels a stage of either kernel
@@ -80,8 +77,6 @@ WGRAD_MIN_BLOCKS = 64
 # Waves of one block an SM that the weight-gradient kernel's grid aims at,
 # so that the last wave's idle SMs cost little (wgrad_split)
 WGRAD_WAVES = 4
-COUNTER = "hupr.conv3d_tf32x3"
-WGRAD_COUNTER = "hupr.conv3d_wgrad_tf32x3"
 # The card tests' bar: max |kernel - reference| over max |reference|, the
 # reference F.conv3d in float64 or in float32 with TF32 off. A torch model of
 # the kernel's 3xTF32 products reads at least ten times under it, one TF32
@@ -190,27 +185,12 @@ def takes_kernel(conv, x: torch.Tensor, weight: torch.Tensor,
 
 
 def _check(tensors: dict, x_shape, weight_shape,
-           device_types=("cuda",)) -> None:
-    """Raise unless the kernels take `tensors` (name: tensor or None):
-    float32, contiguous, on one device of a type in `device_types`, for a
-    conv of input `x_shape` and weight `weight_shape` of shapes they are
-    built for, with a bias of Cout values and an output gradient of the
-    output's shape."""
-    tensors = {k: t for k, t in tensors.items() if t is not None}
-    devices = {t.device for t in tensors.values()}
-    if len(devices) != 1:
-        raise ValueError(f"conv3d_3x3x3 inputs on different devices: "
-                         f"{devices}")
-    device = devices.pop()
-    if device.type not in device_types:
-        raise ValueError(f"conv3d_3x3x3 runs on CUDA or CPU, not {device}")
-    for name, t in tensors.items():
-        if t.dtype != torch.float32:
-            raise TypeError(f"conv3d_3x3x3 takes float32; {name} is "
-                            f"{t.dtype}")
-        if not t.is_contiguous():
-            raise ValueError(f"conv3d_3x3x3 takes contiguous tensors; {name} "
-                             f"is not")
+           device_types=kernels.CARD) -> None:
+    """Raise unless the kernels take `tensors` ({name: tensor}):
+    kernels.check's rules in float32, for a conv of input `x_shape` and
+    weight `weight_shape` of shapes they are built for, with a bias of
+    Cout values and an output gradient of the output's shape."""
+    kernels.check("conv3d_3x3x3", tensors, (torch.float32,), device_types)
     if not _shape_fits(x_shape, weight_shape):
         raise ValueError(
             f"conv3d_3x3x3 is built for x (B, Cin, D, H, W) with Cin a "
@@ -229,78 +209,43 @@ def _check(tensors: dict, x_shape, weight_shape,
 
 
 @functools.cache
-def _kernel():
-    """The ctypes function of csrc/conv3d_fprop.cu: x, weight, bias, the
-    packed weights' workspace, out, then b, cin, cout, depth, height,
-    width, then the stream."""
-    fn = load_library("conv3d_fprop").hupr_conv3d_fprop
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
-@functools.cache
 def _packed_floats(cin: int, cout: int) -> int:
     """Floats of the workspace in which the forward kernel's launch packs a
     (cout, cin, 3, 3, 3) weight (csrc/conv3d_fprop.cu, pack_weights)."""
-    fn = load_library("conv3d_fprop").hupr_conv3d_fprop_packed_bytes
-    fn.argtypes = [ctypes.c_int] * 2
-    fn.restype = ctypes.c_longlong
-    return fn(cin, cout) // 4
-
-
-def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """`t`, or a copy of it on a 16-byte boundary (cp.async's copies)."""
-    return t.clone() if t.data_ptr() % 16 else t
+    return kernels.bind("conv3d_fprop", "hupr_conv3d_fprop_packed_bytes",
+                        (kernels.INT,) * 2, kernels.INT64)(cin, cout) // 4
 
 
 def _conv_cuda(x, weight, bias):
-    _check({"x": x, "weight": weight, "bias": bias}, x.shape, weight.shape)
+    """csrc/conv3d_fprop.cu on x, weight, bias and the packed weights'
+    workspace, into out, for b, cin, cout, d, h, w."""
     b, cin, d, h, w = x.shape
     cout = weight.shape[0]
     out = x.new_empty((b, cout, d, h, w))
     packed = x.new_empty((_packed_floats(cin, cout),))
-    x = _aligned(x)
-    err = _kernel()(x.data_ptr(), weight.data_ptr(),
-                    None if bias is None else bias.data_ptr(),
-                    packed.data_ptr(), out.data_ptr(), b, cin, cout, d, h, w,
-                    torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3d_3x3x3 kernel launch failed with CUDA "
-                           f"error {err}")
-    conv3d_3x3x3.launches += 1
-    profiling.count(COUNTER)
+    kernels.launch(conv3d_3x3x3, "conv3d_fprop",
+                   (kernels.aligned(x), weight, bias, packed, out),
+                   (b, cin, cout, d, h, w))
     return out
 
 
-def _conv_fake(x, weight, bias):
-    """Shapes and dtypes; off the CPU, held to what the CUDA kernel takes
-    (a meta tensor stands for the card's within
-    attention.meta_stands_for_card)."""
-    if x.device.type != "cpu":
-        _check({"x": x, "weight": weight, "bias": bias}, x.shape,
-               weight.shape, device_types=(
-            ("cuda", "meta") if attention._meta_as_card else ("cuda",)))
-    return x.new_empty((x.shape[0], weight.shape[0], *x.shape[2:]))
+_conv_op = kernels.op(
+    "conv3d_3x3x3", "(Tensor x, Tensor weight, Tensor? bias) -> Tensor",
+    conv_plain, _conv_cuda,
+    lambda x, weight, bias: x.new_empty(
+        (x.shape[0], weight.shape[0], *x.shape[2:])),
+    lambda op, t, device_types: _check(t, t["x"].shape, t["weight"].shape,
+                                       device_types))
 
 
-_conv_op = torch.library.custom_op(
-    f"{attention.NAMESPACE}::conv3d_3x3x3", conv_plain, mutates_args=(),
-    device_types="cpu",
-    schema="(Tensor x, Tensor weight, Tensor? bias) -> Tensor")
-_conv_op.register_kernel("cuda", _conv_cuda)
-_conv_op.register_fake(_conv_fake)
-
-
+@kernels.counted
 def conv3d_3x3x3(x: torch.Tensor, weight: torch.Tensor,
                  bias: torch.Tensor | None = None) -> torch.Tensor:
     """F.conv3d(x, weight, bias, padding=1) for a (Cout, Cin, 3, 3, 3)
     float32 kernel. The op hupr_tpu_torch::conv3d_3x3x3: CPU tensors take
     the plain version; CUDA tensors launch the kernel on the current stream
-    (counted in `conv3d_3x3x3.launches` and, while a profiler records, the
-    counter hupr.conv3d_tf32x3), or raise. Where autograd records, its
-    gradient is `_backward`'s."""
+    (counted in `conv3d_3x3x3.launches`), or raise. Where autograd records,
+    its gradient is `_backward`'s."""
     return _conv_op(x, weight, bias)
 
 
@@ -311,43 +256,29 @@ def conv_wgrad_plain(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
         x, (dy.shape[1], x.shape[1], 3, 3, 3), dy, padding=1)
 
 
-@functools.cache
-def _wgrad_kernel():
-    """The ctypes function of csrc/conv3d_wgrad.cu: x, dy, the workspace,
-    then b, cin, cout, depth, height, width, tiles a block, then the
-    stream."""
-    fn = load_library("conv3d_wgrad").hupr_conv3d_wgrad
-    fn.argtypes = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 7 \
-        + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    return fn
-
-
+@kernels.counted
 def conv3d_wgrad(x: torch.Tensor, dy: torch.Tensor) -> torch.Tensor:
     """The weight gradient (Cout, Cin, 3, 3, 3) of conv3d_3x3x3 at input `x`
     (B, Cin, D, H, W) and output gradient `dy` (B, Cout, D, H, W). CPU
     tensors take the plain version; CUDA tensors launch the kernel on the
-    current stream (counted in `conv3d_wgrad.launches` and, while a
-    profiler records, the counter hupr.conv3d_wgrad_tf32x3), or raise. The
-    kernel writes each split's partial sums to a workspace, which torch's
-    sum adds in a fixed order, with no atomics: the same bits on every
-    call."""
+    current stream (counted in `conv3d_wgrad.launches`), or raise."""
     if x.device.type == "cpu" and dy.device.type == "cpu":
         return conv_wgrad_plain(x, dy)
+    _check({"x": x, "dy": dy}, x.shape, (dy.shape[1], x.shape[1], 3, 3, 3))
+    return _wgrad_cuda(x, dy)
+
+
+def _wgrad_cuda(x, dy):
+    """csrc/conv3d_wgrad.cu on x, dy and a workspace, for b, cin, cout, d,
+    h, w and the tiles a block (wgrad_split): each split's partial sums,
+    which torch's sum adds in a fixed order: the same bits every call."""
     b, cin, d, h, w = x.shape
     cout = dy.shape[1]
-    _check({"x": x, "dy": dy}, x.shape, (cout, cin, 3, 3, 3))
     per, splits = wgrad_split(x.shape, cout, _sm_count(x.device))
     part = x.new_empty((splits, cout, cin, 3, 3, 3))
-    x, dy = _aligned(x), _aligned(dy)
-    err = _wgrad_kernel()(x.data_ptr(), dy.data_ptr(), part.data_ptr(), b,
-                          cin, cout, d, h, w, per,
-                          torch.cuda.current_stream(x.device).cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"conv3d_wgrad kernel launch failed with CUDA "
-                           f"error {err}")
-    conv3d_wgrad.launches += 1
-    profiling.count(WGRAD_COUNTER)
+    kernels.launch(conv3d_wgrad, "conv3d_wgrad",
+                   (kernels.aligned(x), kernels.aligned(dy), part),
+                   (b, cin, cout, d, h, w, per))
     return part[0] if splits == 1 else part.sum(0)
 
 
@@ -456,11 +387,3 @@ class WindowConv(torch.autograd.Function):
             db = dy.sum((0, 2, 3, 4))
         return dx, dw, db, None
 
-
-def reset_launch_counts() -> None:
-    """Zero the kernel wrappers' launch counts."""
-    conv3d_3x3x3.launches = 0
-    conv3d_wgrad.launches = 0
-
-
-reset_launch_counts()

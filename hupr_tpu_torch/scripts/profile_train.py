@@ -35,7 +35,7 @@ import torch
 from hupr_tpu_torch.config import config_from_dict
 from hupr_tpu_torch.engine.pipeline import make_e2e_infer
 from hupr_tpu_torch.models.hupr import build_model
-from hupr_tpu_torch.ops import attention
+from hupr_tpu_torch.ops import attention, kernels
 from hupr_tpu_torch.scripts.remat_memory import build
 from hupr_tpu_torch.utils.device import resolve_device
 from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
@@ -108,7 +108,7 @@ def main(argv=None) -> dict:
                   "computeDtype": os.environ.get("PROF_DTYPE", "float32"),
                   "remat": os.environ.get("PROF_REMAT", "0") == "1"},
         "TRAINING": {"batchSize": int(os.environ.get("PROF_BATCH", "20"))}})
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     call = (serve_call if mode == "serve" else train_call)(cfg, device)
     call()                                   # warm-up: cuDNN plans, caches
     activities = [ProfilerActivity.CPU]

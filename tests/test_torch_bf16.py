@@ -37,7 +37,7 @@ from hupr_tpu_torch import config as port_config
 from hupr_tpu_torch.engine import steps
 from hupr_tpu_torch.models.convert import state_dict_from_jax
 from hupr_tpu_torch.models.hupr import HuPRNet, build_model
-from hupr_tpu_torch.ops import attention
+from hupr_tpu_torch.ops import attention, kernels
 from test_torch_models import _variables
 from test_torch_pipeline import (SMALL, _adc, _jax_from_cubes, _nets,
                                  _port_cubes)
@@ -269,7 +269,7 @@ def test_kernel_wrappers_take_bf16_and_count_per_mode():
     float32; the counts start at zero per mode."""
     meta = [torch.empty((2, 256, 64), device="meta", dtype=torch.bfloat16)
             for _ in range(3)]
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     with pytest.raises(TypeError):
         attention.attention_fwd(meta[0], meta[1], meta[2].float())
     with pytest.raises(TypeError):         # the LSE must be float32

@@ -21,7 +21,7 @@ from hupr_tpu_torch.models.blocks import BasicBlock, Conv2d, Conv3d
 from hupr_tpu_torch.models.encoder3d import Encoder3D
 from hupr_tpu_torch.models.hupr import HuPRNet
 from hupr_tpu_torch.models.mnet import MNet
-from hupr_tpu_torch.ops import attention, conv
+from hupr_tpu_torch.ops import conv, kernels
 
 torch.set_num_threads(2)
 
@@ -183,7 +183,7 @@ def _meta_maps(b=32, g=8, side=64, f=32):
 def test_flagship_request_sends_each_encoder_conv(monkeypatch, grad, dtype,
                                                   want):
     """HuPRNet at the flagship geometry on meta tensors (the ops' shape
-    functions, attention.meta_stands_for_card): a float32 forward at 32
+    functions, kernels.meta_stands_for_card): a float32 forward at 32
     windows sends the 16 3x3x3 convs of each of the two Encoder3Ds to the
     op, served or recorded by autograd; a bfloat16 model sends none."""
     model = HuPRNet(num_filters=32, heatmap_size=64, attn_impl="pallas",
@@ -191,7 +191,7 @@ def test_flagship_request_sends_each_encoder_conv(monkeypatch, grad, dtype,
     model.train(grad)
     ra = _meta_maps()
     with _counting(monkeypatch) as calls, torch.set_grad_enabled(grad), \
-            attention.meta_stands_for_card():
+            kernels.meta_stands_for_card():
         heat, _ = model.pose_from_maps(ra, ra)
     assert len(calls) == want
     assert heat.shape[0] == 32
@@ -215,7 +215,7 @@ def _flagship_convs(monkeypatch):
                     attn_impl="pallas").to("meta").eval()
     ra = _meta_maps()
     with _counting(monkeypatch) as calls, torch.inference_mode(), \
-            attention.meta_stands_for_card():
+            kernels.meta_stands_for_card():
         model.pose_from_maps(ra, ra)
     return calls
 
@@ -251,7 +251,7 @@ def test_encoder3d_counts_its_convs(monkeypatch):
     other two)."""
     enc = Encoder3D(32, 8).to("meta").eval()
     with _counting(monkeypatch) as calls, torch.inference_mode(), \
-            attention.meta_stands_for_card():
+            kernels.meta_stands_for_card():
         enc(torch.empty((8, 32, 8, 64, 64), device="meta"))
     assert len(calls) == 16
 
@@ -301,7 +301,7 @@ def test_fake_kernel_refuses_what_the_card_refuses(bad, match):
     inputs to what the CUDA kernel takes; outside meta_stands_for_card a
     meta tensor is refused."""
     x, w, b = (t.to("meta") for t in _draw((1, 8, 2, 3, 8), 64, True))
-    with attention.meta_stands_for_card():
+    with kernels.meta_stands_for_card():
         assert conv.conv3d_3x3x3(x, w, b).shape == (1, 64, 2, 3, 8)
         with pytest.raises((TypeError, ValueError), match=match):
             conv.conv3d_3x3x3(*bad(x, w, b))
@@ -446,7 +446,7 @@ def test_meta_train_step_gradients_have_the_weights_shapes():
     an Encoder3D's forward and backward run through the op at batch 20:
     every parameter gets a gradient of its shape."""
     enc = Encoder3D(32, 8).to("meta")
-    with attention.meta_stands_for_card():
+    with kernels.meta_stands_for_card():
         out = enc(torch.empty((20, 32, 8, 64, 64), device="meta",
                               requires_grad=True))
         sum(o.sum() for o in out).backward()

@@ -15,12 +15,15 @@ import os
 import pytest
 import torch
 
-from hupr_tpu_torch.ops.attention import (attention_bwd, attention_bwd_plain,
+from hupr_tpu_torch.ops.attention import (REL_F32_BWD, REL_F32_FWD,
+                                          REL_IDEAL, REL_TWIN, REL_TWIN_BWD,
+                                          attention_bwd, attention_bwd_plain,
                                           attention_fwd,
                                           attention_fwd_unfolded,
                                           attention_plain,
                                           attention_unfolded_plain,
                                           spatial_attention)
+from hupr_tpu_torch.ops import kernels
 from hupr_tpu_torch.utils.device import float32_math
 
 pytestmark = pytest.mark.cuda
@@ -80,7 +83,7 @@ def _chip_smoke():
 @pytest.mark.parametrize("b,n,c", [(2, 4096, 64), (2, 1024, 128),
                                    (2, 256, 256), (2, 1000, 128)])
 def test_attention_fwd_f32_within_rel_bar(cuda, b, n, c):
-    """The float32 forward within chip_smoke.REL_F32_FWD (relative norm
+    """The float32 forward within attention.REL_F32_FWD (relative norm
     error) of the plain version at the path shapes and a ragged N, on N(0,
     1) inputs as chip_smoke.check_attention draws them: the bar that 3xTF32
     keeps and one TF32 product misses (tests/test_torch_tf32.py)."""
@@ -92,7 +95,7 @@ def test_attention_fwd_f32_within_rel_bar(cuda, b, n, c):
         got = attention_fwd(k, q, m)
         want = attention_plain(k, q, m)
     torch.cuda.synchronize()
-    assert smoke.rel_err(got, want) <= smoke.REL_F32_FWD
+    assert smoke.rel_err(got, want) <= REL_F32_FWD
 
 
 def test_attention_fwd_refuses_grad_on_cuda(cuda):
@@ -135,7 +138,7 @@ def test_attention_bwd_matches_plain(cuda, b, n, c):
 @pytest.mark.parametrize("b,n,c", [(2, 4096, 64), (2, 1024, 128),
                                    (2, 256, 256)])
 def test_attention_bwd_f32_within_rel_bar(cuda, b, n, c):
-    """Each float32 gradient within chip_smoke.REL_F32_BWD (relative norm
+    """Each float32 gradient within attention.REL_F32_BWD (relative norm
     error) of the plain version at the path shapes: the bar that 3xTF32
     keeps and one TF32 product misses (tests/test_torch_tf32.py)."""
     smoke = _chip_smoke()
@@ -144,7 +147,7 @@ def test_attention_bwd_f32_within_rel_bar(cuda, b, n, c):
     want = attention_bwd_plain(k, q, m, out, lse, g)
     torch.cuda.synchronize()
     for name, a, w in zip(("dk", "dq", "dm"), got, want):
-        assert smoke.rel_err(a, w) <= smoke.REL_F32_BWD, name
+        assert smoke.rel_err(a, w) <= REL_F32_BWD, name
 
 
 @pytest.mark.parametrize("n,c", [(4096, 64), (1024, 128), (256, 256),
@@ -292,7 +295,7 @@ BF16_SHAPES = [(2, 4096, 64), (2, 1024, 128), (2, 256, 256)] + [
     (2, n, c) for c in (64, 128, 256) for n in (1, 65, 100, 1000)]
 
 
-def _assert_rel(got, want, name, bar=2.0 ** -8.5):
+def _assert_rel(got, want, name, bar=REL_IDEAL):
     """Relative norm error below `bar` (bfloat16 rounds to 2^-9 relative;
     kernel and twin round at the same points but may round a value the
     other way, or p against another maximum), with an absolute slack of
@@ -350,7 +353,7 @@ def test_attention_bwd_bf16_modes_match_twin(cuda, b, n, c, dtype, bf16_ops):
     torch.cuda.synchronize()
     for name, a, w in zip(("dk", "dq", "dm"), got, want):
         assert a.dtype == dtype
-        _assert_rel(a, w, name, bar=2.0 ** -12)
+        _assert_rel(a, w, name, bar=REL_TWIN_BWD)
 
 
 @pytest.mark.parametrize("bf16_ops", [False, True], ids=["f32", "bf16ops"])
@@ -359,7 +362,7 @@ def test_attention_bwd_bf16_modes_match_twin(cuda, b, n, c, dtype, bf16_ops):
                                    (2, 1000, 256)])
 def test_attention_fwd_unfolded_matches_twin(cuda, b, n, c, bf16_ops):
     """The unfolded forward against its twin: float32 within 1e-4 and
-    chip_smoke.REL_F32_FWD (the folded forward's bars, which 3xTF32 keeps:
+    attention.REL_F32_FWD (the folded forward's bars, which 3xTF32 keeps:
     tests/test_torch_tf32.py models this kernel's arithmetic), bf16_ops
     within the relative bar; two calls bit-identical in both modes."""
     k, q, m = _unit_spread(b, n, c, torch.float32, cuda, seed=n)
@@ -375,7 +378,7 @@ def test_attention_fwd_unfolded_matches_twin(cuda, b, n, c, bf16_ops):
     else:
         smoke = _chip_smoke()
         assert (got - want).abs().max().item() <= 1e-4
-        assert smoke.rel_err(got, want) <= smoke.REL_F32_FWD
+        assert smoke.rel_err(got, want) <= REL_F32_FWD
 
 
 @pytest.mark.parametrize("compute,attn", [("bfloat16", "pallas"),
@@ -419,7 +422,7 @@ def test_bf16_train_step_on_card(cuda, compute, attn):
         step = make_train_step(model, tx, -1.0, (14, h, 4 * h))
         losses[impl] = []
         for batch in batches:
-            attention.reset_launch_counts()
+            kernels.reset_launch_counts()
             state, metrics = step(state, batch, 1e-4, 0.0)
             want = {mode: 12} if impl == attn else {}
             assert attention.attention_fwd.launches_by_mode == want
@@ -509,7 +512,7 @@ def test_runner_epoch_on_card(cuda, tmp_path, monkeypatch):
     args = smoke.runner_args("card")
     runner = Runner(args, cfg)
     runner.load_model_weight("checkpoint")
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     runner.train()
     torch.cuda.synchronize()
     assert (attention.attention_fwd.launches,
@@ -535,7 +538,7 @@ def test_runner_epoch_on_card(cuda, tmp_path, monkeypatch):
 @pytest.mark.parametrize("n,c", [(256, 256), (1024, 128), (4096, 64)])
 def test_attention_fwd_b1_matches_plain(cuda, n, c, mode):
     """The forward at B=1, as the stream launches it (a (256, 256) call is
-    4 blocks): float32 within 1e-4 and chip_smoke's REL_F32_FWD of the
+    4 blocks): float32 within 1e-4 and attention.REL_F32_FWD of the
     plain version, bfloat16 within 2^-7.5 of its twin and 2^-8.5 of the
     float32 ideal."""
     smoke = _chip_smoke()
@@ -552,9 +555,9 @@ def test_attention_fwd_b1_matches_plain(cuda, n, c, mode):
     torch.cuda.synchronize()
     if mode == "f32":
         assert (got - want).abs().max().item() <= 1e-4
-        assert smoke.rel_err(got, want) <= smoke.REL_F32_FWD
+        assert smoke.rel_err(got, want) <= REL_F32_FWD
     else:
-        _assert_rel(got, want, "twin", 2.0 ** -7.5)
+        _assert_rel(got, want, "twin", REL_TWIN)
         _assert_rel(got, ideal, "ideal")
 
 
@@ -697,7 +700,7 @@ def test_exported_artifact_on_card(cuda, tmp_path, compute, bars):
     frames = [rng.integers(-300, 300, (8, 4, 48, 128)).astype(np.int16)
               for _ in range(4)]
     live = make_e2e_infer(model, None, rp, duration=8)(*frames)
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     pred, maxv = serve(*frames)
     torch.cuda.synchronize()
     mode = "f32" if compute == "float32" else "bf16"
@@ -724,7 +727,7 @@ def test_entry_on_card(cuda):
 
     forward, (hori, vert) = graft_entry.entry()
     assert hori.device.type == vert.device.type == "cuda"
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     got = forward(hori, vert)
     torch.cuda.synchronize()
     assert attention.attention_fwd.launches_by_mode == {"f32": 12}
@@ -949,7 +952,7 @@ def test_conv3d_op_gradients_match_float64(cuda, shape, cout, bias):
 
     x, w, b, dy = _grad_draw(cuda, shape, cout, bias)
     leaves = [t.requires_grad_() for t in (x, w, b) if t is not None]
-    conv.reset_launch_counts()
+    kernels.reset_launch_counts()
     got = torch.autograd.grad(conv.conv3d_3x3x3(x, w, b), leaves, dy)
     torch.cuda.synchronize()
     route = conv.routes(shape, cout)
@@ -1039,7 +1042,7 @@ def test_conv3d_wgrad_launches_per_train_step_and_matches_cudnn(cuda):
         step = make_train_step(model, tx, -1.0, (14, h, 4 * h))
         losses[route] = []
         for batch in batches:
-            conv.reset_launch_counts()
+            kernels.reset_launch_counts()
             if route == "kernels":
                 state, metrics = step(state, batch, 1e-4, 0.0)
             else:
@@ -1056,30 +1059,29 @@ def test_conv3d_wgrad_launches_per_train_step_and_matches_cudnn(cuda):
 
 
 def _conv_launches(fn) -> tuple:
-    """(kernel launches, hupr.conv3d_tf32x3 count) over one profiled call
-    of `fn`."""
-    from torch.profiler import ProfilerActivity, profile
+    """(conv3d_3x3x3's launches, the forward kernels the card ran) over one
+    call of `fn`, from torch.profiler's device events, the window padded as
+    chip_smoke.card_trace pads it."""
+    from torch.profiler import ProfilerActivity
 
     from hupr_tpu_torch.ops import conv
-    from hupr_tpu_torch.utils import profiling
 
-    conv.reset_launch_counts()
-    profiling.reset()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+    kernels.reset_launch_counts()
+    with _chip_smoke().card_trace(torch, [ProfilerActivity.CUDA]) as prof:
         fn()
-        torch.cuda.synchronize()
-    counted = profiling.table()["counters"].get("hupr.conv3d_tf32x3", 0)
-    profiling.reset()
-    return conv.conv3d_3x3x3.launches, counted
+    return conv.conv3d_3x3x3.launches, sum(
+        1 for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+        and "::conv3d_fprop_wgmma<" in e.name)
 
 
 def test_conv3d_kernel_carries_each_encoder_conv_of_a_request(cuda):
     """One served float32 request (make_e2e_infer) of 16 frames, whose
     windows give every conv a grid of conv.MIN_BLOCKS or more: the kernel
     launches once for each 3x3x3 conv of the two Encoder3Ds, 2 x 16, and
-    the counter hupr.conv3d_tf32x3 counts them (not the launch that packs
-    the weights). At 4 frames the 8x8 maps' convs (16 blocks) stay on
-    cuDNN: 2 x 10."""
+    the card's trace holds as many forward kernels (not counting the
+    launches that pack the weights). At 4 frames the 8x8 maps' convs (16
+    blocks) stay on cuDNN: 2 x 10."""
     for frames, want in ((16, 32), (4, 20)):
         run, planes = _small_request(frames)
         run(*planes)
@@ -1156,7 +1158,7 @@ def test_exported_f32_artifact_equals_live_serving_bit_for_bit(cuda,
     frames = [rng.integers(-300, 300, (16, 4, 48, 128)).astype(np.int16)
               for _ in range(4)]
     live = make_e2e_infer(model, None, rp, duration=16)(*frames)
-    conv.reset_launch_counts()
+    kernels.reset_launch_counts()
     pred, maxv = serve(*frames)
     torch.cuda.synchronize()
     assert conv.conv3d_3x3x3.launches == 32

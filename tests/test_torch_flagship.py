@@ -21,7 +21,7 @@ import torch
 import torch.distributed as dist
 
 from hupr_tpu_torch import graft_entry
-from hupr_tpu_torch.ops import attention
+from hupr_tpu_torch.ops import attention, kernels
 
 NDEV = graft_entry.SHAPE_WORLD
 
@@ -201,7 +201,7 @@ def test_meta_stands_for_card_only_within_the_pass():
     meta = [torch.empty((2, 256, 64), device="meta") for _ in range(3)]
     with pytest.raises(ValueError, match="not meta"):
         attention.attention_fwd(*meta)
-    with attention.meta_stands_for_card():
+    with kernels.meta_stands_for_card():
         out, lse = attention.attention_fwd(*meta, with_lse=True)
         assert (out.shape, lse.shape, out.device.type) == \
             ((2, 256, 64), (2, 256), "meta")

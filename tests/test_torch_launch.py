@@ -1,15 +1,16 @@
-"""What the attention wrappers hand the kernels, and the least time
-chip_smoke.py charges a kernel against (its bound). CPU only: no kernel
-runs."""
+"""What the kernels' wrappers hand the kernels through the seam
+(ops/kernels), and the least time chip_smoke.py charges a kernel against
+(its bound). CPU only: no kernel runs."""
 
 import ctypes
 import importlib.util
+import math
 import os
 
 import pytest
 import torch
 
-from hupr_tpu_torch.ops import attention
+from hupr_tpu_torch.ops import attention, conv, kernels
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -50,49 +51,93 @@ def test_tensor_core_modes_take_aligned_bf16(dtype, bf16_ops):
         assert out[0] is aligned
 
 
+ATTN = (2, 8, 64)                   # (B, N, C)
+X, DY = (1, 8, 2, 4, 8), (1, 64, 2, 4, 8)   # the conv's (B, C, D, H, W)
+
+# id: (wrapper, mode, the operands' shapes, their places among the C
+# function's pointers, the place of the output it returns, its ints, the
+# call of the CUDA kernel on the operands). The unfolded forward's ids are
+# its modes.
+LAUNCH_CASES = {
+    "f32": (attention.attention_fwd_unfolded, "f32", [ATTN] * 3, (0, 1, 2),
+            3, (*ATTN, 0, 0),
+            lambda k, q, m: attention._unfolded_cuda(k, q, m, False)),
+    "f32_bf16ops": (
+        attention.attention_fwd_unfolded, "f32_bf16ops", [ATTN] * 3,
+        (0, 1, 2), 3, (*ATTN, 0, 1),
+        lambda k, q, m: attention._unfolded_cuda(k, q, m, True)),
+    "attention_fwd": (
+        attention.attention_fwd, "f32", [ATTN] * 3, (0, 1, 2), 3,
+        (*ATTN, 0, 0),
+        lambda k, q, m: attention._fwd_cuda(k, q, m, False, False)),
+    "attention_fwd_lse": (
+        attention.attention_fwd, "f32", [ATTN] * 3, (0, 1, 2), 3,
+        (*ATTN, 0, 0),
+        lambda k, q, m: attention._fwd_cuda(k, q, m, False, True)[0]),
+    "attention_bwd": (
+        attention.attention_bwd, "f32", [ATTN] * 4, (0, 1, 2, 5), 6,
+        (*ATTN, 0, 0),
+        lambda k, q, m, g: attention._bwd_cuda(
+            k, q, m, torch.randn(ATTN), torch.randn(ATTN[:2]), g, False)[0]),
+    "conv3d_3x3x3": (
+        conv.conv3d_3x3x3, "f32", [X], (0,), 4, (1, 8, 64, 2, 4, 8),
+        lambda x: conv._conv_cuda(x, torch.randn(64, 8, 3, 3, 3),
+                                  torch.randn(64))),
+    "conv3d_wgrad": (
+        conv.conv3d_wgrad, "f32", [X, DY], (0, 1), 2, (1, 8, 64, 2, 4, 8, 1),
+        conv._wgrad_cuda),
+}
+
+
 @pytest.mark.parametrize("offset", [0, 1], ids=["aligned", "shifted"])
-@pytest.mark.parametrize("bf16_ops", [False, True],
-                         ids=["f32", "f32_bf16ops"])
-def test_unfolded_wrapper_hands_kernel_its_operands(monkeypatch, bf16_ops,
+@pytest.mark.parametrize("case", LAUNCH_CASES)
+def test_unfolded_wrapper_hands_kernel_its_operands(monkeypatch, case,
                                                     offset):
-    """attention_fwd_unfolded hands its C function k, q and m on 16-byte
+    """Each kernel's CUDA wrapper (the unfolded forward in both its modes,
+    the forward with and without the LSE, the backward, the conv's forward
+    and its weight gradient) hands its C function the operands on 16-byte
     boundaries: in f32_bf16ops bfloat16, one cast each of the float32
     inputs; in f32 the inputs themselves, copied only when one starts off a
-    boundary; and a float32 out, in both. The op's CUDA kernel is called
-    directly on CPU tensors (the dispatcher would hand them the plain
-    twin), its C function replaced by a recorder that reads the operands'
-    bytes while the call lasts, and the device checks and the stream
-    bypassed: no kernel runs."""
-    calls = []
-    b, n, c = 2, 8, 64
-    size = b * n * c
+    boundary. It hands over the output it returns and the ints of the
+    shapes and mode, counts the launch once under its mode, and raises,
+    counting nothing, when the C function returns a CUDA error. The
+    wrapper is called directly on CPU tensors (the dispatcher would hand
+    them the plain twin), the seam's binding of the launch replaced by a
+    recorder that reads the operands' bytes while the call lasts and its
+    stream bypassed: no kernel runs."""
+    wrapper, mode, shapes, places, out_at, ints, call = LAUNCH_CASES[case]
+    operands = [torch.randn(math.prod(s) + 1)[offset:][:math.prod(s)]
+                .view(s) for s in shapes]
+    wants = [t.to(torch.bfloat16) if mode.endswith("bf16ops") else t
+             for t in operands]
+    calls, err = [], [0]
 
     def c_function(*args):
-        width = 2 if bf16_ops else 4
-        calls.append((args, [ctypes.string_at(p, size * width)
-                             for p in args[:3]]))
-        return 0
+        calls.append((args, [ctypes.string_at(
+            args[p], w.numel() * w.element_size())
+            for p, w in zip(places, wants)]))
+        return err[0]
 
-    monkeypatch.setattr(attention, "_kernel", lambda name: c_function)
-    monkeypatch.setattr(attention, "_check", lambda *a, **kw: None)
-    monkeypatch.setattr(attention, "_stream", lambda t: None)
-    base = torch.randn(3 * size + 1)
-    k, q, m = (base[offset + i * size:offset + (i + 1) * size].view(b, n, c)
-               for i in range(3))
-    mode = attention.kernel_mode(torch.float32, bf16_ops)
-    before = attention.attention_fwd_unfolded.launches_by_mode.get(mode, 0)
-    out = attention._unfolded_cuda(k, q, m, bf16_ops)
+    monkeypatch.setattr(kernels, "_launcher", lambda *a: c_function)
+    monkeypatch.setattr(kernels, "stream", lambda device: None)
+    monkeypatch.setattr(conv, "_packed_floats", lambda cin, cout: 4)
+    monkeypatch.setattr(conv, "_sm_count", lambda device: 132)
+    before = wrapper.launches_by_mode.get(mode, 0)
+    out = call(*operands)
     (args, raw), = calls
-    assert args[4:] == (b, n, c, 0, int(bf16_ops), None)
-    assert out.dtype == torch.float32 and args[3] == out.data_ptr()
-    assert attention.attention_fwd_unfolded.launches_by_mode[mode] \
-        == before + 1
-    for ptr, data, t in zip(args[:3], raw, (k, q, m)):
-        want = t.to(torch.bfloat16) if bf16_ops else t
+    assert args[-len(ints) - 1:] == (*ints, None)
+    assert args[out_at] == out.data_ptr()
+    assert wrapper.launches_by_mode[mode] == before + 1
+    for p, data, t, want in zip(places, raw, operands, wants):
         got = torch.frombuffer(bytearray(data), dtype=want.dtype)
-        assert ptr % 16 == 0
-        assert torch.equal(got.view(b, n, c), want)
-        assert (ptr == t.data_ptr()) == (not bf16_ops and offset == 0)
+        assert args[p] % 16 == 0
+        assert torch.equal(got.view(want.shape), want)
+        assert (args[p] == t.data_ptr()) == (want is t and offset == 0)
+    err[0] = 700
+    with pytest.raises(RuntimeError, match=f"mode {mode} failed with CUDA "
+                                           f"error 700"):
+        call(*operands)
+    assert wrapper.launches_by_mode[mode] == before + 1
 
 
 @pytest.mark.parametrize("a,b,pipe,products", [

@@ -7,11 +7,11 @@ kernels feed each such x as two bfloat16 terms into one float32
 accumulator: hi = bf16(x) and lo = bf16(x - hi). Here the twin's arithmetic
 runs with that split on the same inputs, with float32 products of bfloat16
 values (exact, as on the tensor cores) summed in float32, at two of the
-model's (N, C) shapes; the outputs must stay within the bars chip_smoke.py
-holds the kernels to against their twins: 2^-7.5 (forward) and 2^-12
-(backward, relative norm errors). That a single bfloat16 rounding of p or
-dS misses the backward's bar, at the same shapes, is
-tests/test_torch_bf16.py::test_bwd_twin_bar_sees_rounding.
+model's (N, C) shapes; the outputs must stay within the bars the card holds
+the kernels to against their twins: attention.REL_TWIN, 2^-7.5 (forward),
+and REL_TWIN_BWD, 2^-12 (backward, relative norm errors). That a single
+bfloat16 rounding of p or dS misses the backward's bar, at the same
+shapes, is tests/test_torch_bf16.py::test_bwd_twin_bar_sees_rounding.
 """
 
 import numpy as np
@@ -20,8 +20,6 @@ import torch
 
 from hupr_tpu_torch.ops import attention
 
-REL_TWIN = 2.0 ** -7.5
-REL_TWIN_BWD = 2.0 ** -12
 SHAPES = [(2, 1024, 128), (2, 256, 256)]
 
 
@@ -87,7 +85,7 @@ def test_forward_split_within_twin_bar(b, n, c):
     twin = attention.attention_fwd(k, q, m)
     got = _fwd_split(k, q, m)
     assert got.dtype == twin.dtype == torch.bfloat16
-    assert _rel(got.float(), twin.float()) <= REL_TWIN
+    assert _rel(got.float(), twin.float()) <= attention.REL_TWIN
 
 
 @pytest.mark.parametrize("b,n,c", SHAPES)
@@ -98,4 +96,4 @@ def test_backward_split_within_twin_bar(b, n, c):
     got = _bwd_terms(k, q, m, out, lse, g, _split)
     for name, a, w in zip(("dk", "dq", "dm"), got, twin):
         assert a.dtype == w.dtype == torch.bfloat16
-        assert _rel(a.float(), w.float()) <= REL_TWIN_BWD, name
+        assert _rel(a.float(), w.float()) <= attention.REL_TWIN_BWD, name

@@ -18,7 +18,7 @@ import hupr_tpu.engine.streaming as jax_streaming
 import hupr_tpu_torch.engine.streaming as port_streaming
 from hupr_tpu.ops import dsp as jax_dsp
 from hupr_tpu_torch.engine.pipeline import make_e2e_infer
-from hupr_tpu_torch.ops import attention, dsp
+from hupr_tpu_torch.ops import attention, dsp, kernels
 from test_torch_pipeline import SMALL, _nets
 
 torch.set_num_threads(2)
@@ -184,7 +184,7 @@ def test_eager_step_counts_its_launches_and_pins_float32(monkeypatch):
 
     monkeypatch.setattr(est.model, "chirp_maps", spy)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
-    attention.reset_launch_counts()
+    kernels.reset_launch_counts()
     hr, hi, vr, vi = _frames(4, 2)
     for t in range(2):
         est.process_frame((hr[t], hi[t]), (vr[t], vi[t]))

@@ -9,7 +9,7 @@ is taken as a_lo.b_hi + a_hi.b_lo + a_hi.b_hi into a float32 sum. Here the
 kernels' formulas run with exactly those products (tf32 values multiply
 exactly in float32) at two of the model's (N, C) shapes, and must stay
 within the relative norm error the kernel is held to on the card
-(chip_smoke.REL_F32_BWD, REL_F32_FWD) of the float64 ideal and of the plain
+(attention.REL_F32_BWD, REL_F32_FWD) of the float64 ideal and of the plain
 version; one TF32 product (hi.hi alone) must miss it, so that the bar tells
 the two apart. The forward is modelled as the kernel runs it: key tiles
 with an online softmax, the logits summed in chunks of C and each tile's
@@ -21,8 +21,6 @@ body) in interpret mode.
 """
 
 import functools
-import importlib.util
-import os
 
 import jax
 import jax.numpy as jnp
@@ -34,7 +32,6 @@ from jax.experimental import pallas as pl
 import hupr_tpu.ops.attention as jax_attention
 from hupr_tpu_torch.ops import attention
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SHAPES = [(2, 1024, 128), (2, 256, 256)]
 NAMES = ("dk", "dq", "dm")
 LOG2E = 1.4426950408889634    # the kernels' exp2f((s - max) * LOG2E)
@@ -55,12 +52,8 @@ CASES = [pytest.param("bwd", *shape, "unit", id="-".join(map(str, shape)))
 @pytest.fixture(scope="module")
 def bar():
     """The card's bar of each kernel, by name."""
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", os.path.join(REPO, "chip_smoke.py"))
-    module = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(module)
-    return {"bwd": module.REL_F32_BWD, "fwd": module.REL_F32_FWD,
-            "unfolded": module.REL_F32_FWD}
+    return {"bwd": attention.REL_F32_BWD, "fwd": attention.REL_F32_FWD,
+            "unfolded": attention.REL_F32_FWD}
 
 
 def _tf32(x):
