@@ -459,8 +459,9 @@ def check_conv_grads(torch, peaks):
     over max |reference|) with cuDNN's float32 error beside it, the weight
     gradient bit-identical on a second call; timed beside cuDNN's (aten's
     convolution_backward, TF32 off: the plain version and the library
-    call). The bound is the larger of the 3xTF32 products and the bytes of
-    the two inputs and the output. Returns per-shape rows."""
+    call), with the kernel's TFLOP/s and its share of the bound, the larger
+    of the 3xTF32 products and the bytes of the two inputs and the output.
+    Returns per-shape rows."""
     from hupr_tpu_torch.ops import conv
     from hupr_tpu_torch.utils.device import float32_math
 
@@ -513,6 +514,7 @@ def check_conv_grads(torch, peaks):
                 row["bound_by"] = "operations" if ops_s >= bytes_s \
                     else "bytes"
                 row["tflops"] = flops / row["kernel_ms"] / 1e9
+                row["bound_share"] = row["bound_ms"] / row["kernel_ms"]
                 print(json.dumps(row), flush=True)
                 if not row["rel_err_vs_f64"] <= conv.REL_TOL:
                     raise AssertionError(f"{name} at {shape} -> {cout}: "
@@ -4650,7 +4652,7 @@ def main() -> int:
         f"one train step: {conv_train_launches()[1]} launches, the "
         f"Encoder3Ds' 3x3x3 convs' weight gradients at B={TRAIN_BATCH}",
         B5=grad_sums("conv3d_wgrad", 5),
-        body="conv3d_wgrad_tf32<W> (3xTF32 on mma.sync, csrc/tf32.cuh), "
+        body="conv3d_wgrad_wgmma<W> (3xTF32 on wgmma, csrc/tf32.cuh), "
              "the splits added by torch's sum",
         rel_err_vs_f64=max(r["rel_err_vs_f64"] for r in grad_rows
                            if r["kernel"] == "conv3d_wgrad"),

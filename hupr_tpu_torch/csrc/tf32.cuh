@@ -2,8 +2,8 @@
 // of the attention kernels' float32 bodies (attention_fwd.cu's and
 // attention_bwd.cu's _tf32 kernels) and the conv kernels'. Warp-level
 // mma.sync m16n8k8 with tf32 operands and float32 accumulators, fed from
-// float32 tiles in shared memory; and warpgroup wgmma m64n64k8 with a
-// tf32 A from registers (below, the conv forward's).
+// float32 tiles in shared memory; and warpgroup wgmma m64n64k8 and m64n32k8
+// with a tf32 A from registers (below, the conv kernels').
 //
 // 3xTF32. A float32 x is split once into two tf32 terms, hi = rna(x) and
 // lo = x - hi (rna: round to nearest, ties away, to tf32's 10-bit mantissa;
@@ -289,6 +289,25 @@ __device__ __forceinline__ void wgmma_n64(float (&d)[32],
         "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
         "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
         "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
+        "r"(accumulate));
+}
+
+// d (64 x 32) = a . b + (accumulate ? d : 0): wgmma_n64 on 32 columns, b
+// the descriptor of a K-major tile's rows from its first.
+__device__ __forceinline__ void wgmma_n32(float (&d)[16],
+                                          const uint32_t (&a)[4], uint64_t db,
+                                          int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db),
         "r"(accumulate));
 }

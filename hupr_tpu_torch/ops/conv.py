@@ -54,14 +54,17 @@ import torch.nn.functional as F
 from hupr_tpu_torch.ops import kernels
 
 KERNEL_WIDTHS = (8, 16, 32, 64)
-CIN_MULTIPLE = 8          # input channels a stage of either kernel
+CIN_MULTIPLE = 8          # input channels: a stage of the forward kernel,
+                          # the least block of the weight gradient's
 COUT_MULTIPLE = 64        # output channels a block of either kernel
 # The forward kernel's tile (csrc/conv3d_fprop.cu): FPROP_VOXELS output
 # voxels, 2 depths x FPROP_VOXELS / (2 W) rows x W, by COUT_MULTIPLE channels
 FPROP_VOXELS = 256
 # The weight-gradient kernel's voxel tile (csrc/conv3d_wgrad.cu): 2 depths x
-# WGRAD_VOXELS / (2 W) rows x W, the unit its splits share out
+# WGRAD_VOXELS / (2 W) rows x W, the unit its splits share out; a block of
+# it owns WGRAD_CIN input channels (x 27 taps) by COUT_MULTIPLE output ones
 WGRAD_VOXELS = 256
+WGRAD_CIN = 16
 # The least grid (tiles of the forward kernel) the rule sends to the forward
 # kernel. One tile runs a whole K on one SM, so a small grid leaves most of
 # the card's SMs idle where cuDNN splits the work finer. On the H100 SXM
@@ -71,12 +74,20 @@ WGRAD_VOXELS = 256
 # tiles (B = 2) 0.127 and 0.243 against 0.084 and 0.159; 8 tiles (B = 1)
 # 0.124 and 0.243 against 0.078 and 0.153
 MIN_BLOCKS = 32
-# The least grid the weight-gradient kernel takes (wgrad_takes), measured
-# for it at B = 1 on the mma.sync forward's rule
+# The least grid the weight-gradient kernel takes (wgrad_takes). On the H100
+# SXM the wgmma body beats cuDNN at every Encoder3D shape at B = 1, down to
+# the least of their grids, 64 blocks (128 -> 256 at 16x16: 0.032 ms against
+# 0.069); smaller grids are not measured
 WGRAD_MIN_BLOCKS = 64
-# Waves of one block an SM that the weight-gradient kernel's grid aims at,
-# so that the last wave's idle SMs cost little (wgrad_split)
-WGRAD_WAVES = 4
+# Waves of one block an SM that the weight-gradient kernel's grid fills
+# (wgrad_split). One block an SM over all its tiles pays the pipeline's fill
+# and the epilogue once: a train step's 32 weight gradients on the H100 SXM
+# took 19.70 ms at one wave, 20.12 at two, 21.42 at four (B = 20), and 5.44,
+# 6.03 and 6.88 ms at B = 5
+WGRAD_WAVES = 1
+# The weight-gradient kernel's body, the mode its launches are counted
+# under (conv3d_wgrad.launches_by_mode): warpgroup wgmma in 3xTF32
+WGRAD_MODE = "wgmma"
 # The card tests' bar: max |kernel - reference| over max |reference|, the
 # reference F.conv3d in float64 or in float32 with TF32 off. A torch model of
 # the kernel's 3xTF32 products reads at least ten times under it, one TF32
@@ -132,15 +143,22 @@ def dgrad_takes(x_shape, cout: int) -> bool:
     return fprop_takes((x_shape[0], cout, *x_shape[2:]), x_shape[1])
 
 
+def wgrad_chunks(cin: int, cout: int) -> int:
+    """Blocks of the weight-gradient kernel a split of the voxels: one for
+    each WGRAD_CIN input channels (the last may hold 8) and COUT_MULTIPLE
+    output channels."""
+    return -(-cin // WGRAD_CIN) * (cout // COUT_MULTIPLE)
+
+
 def wgrad_split(x_shape, cout: int, sms: int) -> tuple:
     """(tiles a block, splits) of the weight-gradient kernel for input (B,
-    Cin, D, H, W) and `cout` channels on a card of `sms` SMs: its grid has a
-    block for each chunk of 64 output and 8 input channels in each split of
-    the voxel tiles (voxel_tiles of WGRAD_VOXELS), and the splits are as
-    many as bring the grid to about WGRAD_WAVES x `sms` blocks."""
+    Cin, D, H, W) and `cout` channels on a card of `sms` SMs: its grid has
+    wgrad_chunks blocks in each split of the voxel tiles (voxel_tiles of
+    WGRAD_VOXELS), and the splits are as many as fit WGRAD_WAVES x `sms`
+    blocks, and at least one."""
     tiles = voxel_tiles(x_shape, WGRAD_VOXELS)
-    chunks = x_shape[1] // CIN_MULTIPLE * (cout // COUT_MULTIPLE)
-    per = -(-tiles // -(-WGRAD_WAVES * sms // chunks))
+    fit = max(1, WGRAD_WAVES * sms // wgrad_chunks(x_shape[1], cout))
+    per = -(-tiles // fit)
     return per, -(-tiles // per)
 
 
@@ -156,8 +174,8 @@ def wgrad_takes(x_shape, cout: int) -> bool:
     WGRAD_MIN_BLOCKS blocks."""
     cin = x_shape[1]
     return (_shape_fits(x_shape, (cout, cin, 3, 3, 3))
-            and voxel_tiles(x_shape, WGRAD_VOXELS) * (cin // CIN_MULTIPLE)
-            * (cout // COUT_MULTIPLE) >= WGRAD_MIN_BLOCKS)
+            and voxel_tiles(x_shape, WGRAD_VOXELS) * wgrad_chunks(cin, cout)
+            >= WGRAD_MIN_BLOCKS)
 
 
 def routes(x_shape, cout: int) -> dict:
@@ -278,7 +296,7 @@ def _wgrad_cuda(x, dy):
     part = x.new_empty((splits, cout, cin, 3, 3, 3))
     kernels.launch(conv3d_wgrad, "conv3d_wgrad",
                    (kernels.aligned(x), kernels.aligned(dy), part),
-                   (b, cin, cout, d, h, w, per))
+                   (b, cin, cout, d, h, w, per), mode=WGRAD_MODE)
     return part[0] if splits == 1 else part.sum(0)
 
 

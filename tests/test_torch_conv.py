@@ -389,29 +389,30 @@ def test_each_pass_takes_its_kernel_by_its_own_grid(b):
     forward's rule (not the first conv: 32 channels; not the 128 -> 256
     conv at 5 rows, whose dX grid has 20 tiles), dW through its kernel
     where its grid has conv.WGRAD_MIN_BLOCKS blocks; and the
-    weight-gradient kernel's splits bring its grid to two to four waves of
-    the H100 SXM's 132 SMs."""
+    weight-gradient kernel's splits fill conv.WGRAD_WAVES waves of the H100
+    SXM's 132 SMs, one block an SM, to within 4 %."""
     got = []
     for shape, cout, _ in ENCODER_CONVS:
         x_shape = (b, *shape[1:])
         r = conv.routes(x_shape, cout)
         got.append((r["fprop"], r["dgrad"], r["wgrad"]))
         per, splits = conv.wgrad_split(x_shape, cout, H100_SMS)
-        chunks = shape[1] // conv.CIN_MULTIPLE * (cout // conv.COUT_MULTIPLE)
+        chunks = conv.wgrad_chunks(shape[1], cout)
+        assert chunks == shape[1] // 16 * (cout // 64)
         tiles = conv.voxel_tiles(x_shape, conv.WGRAD_VOXELS)
         assert (splits - 1) * per < tiles <= splits * per
-        assert (2 * H100_SMS <= splits * chunks
-                < conv.WGRAD_WAVES * H100_SMS + chunks)
+        assert (0.96 * conv.WGRAD_WAVES * H100_SMS <= splits * chunks
+                <= conv.WGRAD_WAVES * H100_SMS)
     assert got == PASS_ROUTES[b]
 
 
-# (tiles a block, splits) of the weight-gradient kernel at each Encoder3D
-# conv on the H100 SXM, and its voxel tiles, at 5 rows and at batch 20: the
-# tiling its dW has been checked at on the card, bit for bit
+# (tiles a block, splits) of the weight-gradient kernel's wgmma body at each
+# Encoder3D conv on the H100 SXM, and its voxel tiles, at 5 rows and at
+# batch 20: the tiling its dW has been checked at on the card, bit for bit
 WGRAD_TILING = {
-    5: ([(5, 128), (10, 64), (3, 27), (5, 16), (2, 5), (2, 5)],
+    5: ([(10, 64), (20, 32), (5, 16), (10, 8), (3, 4), (5, 2)],
         [640, 640, 80, 80, 10, 10]),
-    20: ([(20, 128), (39, 66), (10, 32), (19, 17), (5, 8), (8, 5)],
+    20: ([(39, 66), (78, 33), (20, 16), (40, 8), (10, 4), (20, 2)],
          [2560, 2560, 320, 320, 40, 40])}
 
 
@@ -579,12 +580,13 @@ def test_3xtf32_model_within_the_card_bar_and_1xtf32_over_it(shape, cout):
 def wgrad_model(x, dy, product):
     """The weight-gradient kernel's sums in torch (csrc/conv3d_wgrad.cu):
     the voxels in tiles of 2 depths x 128 / W rows x W columns (zero past
-    the volume), each tile in 4 chains of 64 voxels whose products
-    `product(dy_chain, x_chain)` (float32, (Cout, Cin x 27)) are summed from
-    zero; each block adds its chains into its float32 accumulator in order,
-    tile by tile over its split of conv.wgrad_split's tiles (on the H100
-    SXM's SMs), and the splits are added by torch's sum, as the wrapper
-    adds them."""
+    the volume), each tile in 4 chains of 64 voxels (8 wgmma k-steps) whose
+    products `product(dy_chain, x_chain)` (float32, (Cout, Cin x 27); the
+    kernel's m64 tiles of 16 channels x 4 taps by 64 output channels each
+    take their own rows and columns of it) are summed from zero; each block
+    adds its chains into its float32 accumulator in order, tile by tile over
+    its split of conv.wgrad_split's tiles (one wave of the H100 SXM's SMs),
+    and the splits are added by torch's sum, as the wrapper adds them."""
     b, cin, d, h, w = x.shape
     cout = dy.shape[1]
     rows = conv.WGRAD_VOXELS // (2 * w)
@@ -615,11 +617,12 @@ def wgrad_model(x, dy, product):
 
 def product_3xtf32(g, xs):
     """A chain's 3xTF32 products: g and x split into hi = rna(v) and lo =
-    v - hi (lo's tf32 bits), lo.hi + hi.lo + hi.hi each an exact float32
-    product of tf32 values, added in float32 small terms first."""
+    v - hi (lo's tf32 bits), each an exact float32 product of tf32 values,
+    added in float32 small terms first, in the kernel's order with the
+    input as wgmma's A and g as its B: x_lo.g_hi + x_hi.g_lo + x_hi.g_hi."""
     gh, xh = _tf32_bits(g, True), _tf32_bits(xs, True)
     gl, xl = _tf32_bits(g - gh, False), _tf32_bits(xs - xh, False)
-    return (gl @ xh.mT + gh @ xl.mT) + gh @ xh.mT
+    return (gh @ xl.mT + gl @ xh.mT) + gh @ xh.mT
 
 
 def product_1xtf32(g, xs):

@@ -923,18 +923,19 @@ def _grad_draw(cuda, shape, cout, bias):
                          ids=[f"{s}-{c}" for s, c, _ in _GRAD_CASES])
 def test_conv3d_wgrad_kernel_matches_float64(cuda, shape, cout, bias):
     """csrc/conv3d_wgrad.cu at each Encoder3D shape at B = 5 and 20, and at
-    ragged ones: within conv.REL_TOL (max |error| over max |reference|) of
-    the float64 weight gradient; the same bits on a second call; one launch
-    a call."""
+    ragged ones (8 input channels past a block's 16, depths and rows past a
+    tile): within conv.REL_TOL (max |error| over max |reference|) of the
+    float64 weight gradient; the same bits on a second call; one launch a
+    call, of the wgmma body."""
     from hupr_tpu_torch.ops import conv
 
     x, _, _, dy = _grad_draw(cuda, shape, cout, bias)
-    before = conv.conv3d_wgrad.launches
+    kernels.reset_launch_counts()
     got = conv.conv3d_wgrad(x, dy)
     again = conv.conv3d_wgrad(x, dy)
     torch.cuda.synchronize()
     ref64 = conv.conv_wgrad_plain(x.double(), dy.double())
-    assert conv.conv3d_wgrad.launches - before == 2
+    assert conv.conv3d_wgrad.launches_by_mode == {conv.WGRAD_MODE: 2}
     assert torch.equal(got, again)
     scale = ref64.abs().max().item()
     assert (got.double() - ref64).abs().max().item() <= conv.REL_TOL * scale
@@ -1005,8 +1006,8 @@ def test_conv3d_wgrad_launches_per_train_step_and_matches_cudnn(cuda):
     cuDNN (chip_smoke.plain_convs) from the same weights, each path from its
     own state: per step the forward kernel runs each conv whose forward it
     takes and each of those convs' dX it takes, the weight kernel each of
-    their dW (ops/conv.routes); finite losses within rtol 2e-4 of cuDNN's
-    route."""
+    their dW (ops/conv.routes), every one on its wgmma body
+    (launches_by_mode); finite losses within rtol 2e-4 of cuDNN's route."""
     import numpy as np
 
     from hupr_tpu_torch.config import config_from_dict
@@ -1052,6 +1053,8 @@ def test_conv3d_wgrad_launches_per_train_step_and_matches_cudnn(cuda):
             launched = conv.conv3d_3x3x3.launches, conv.conv3d_wgrad.launches
             assert launched == ((fprop, wgrad) if route == "kernels"
                                 else (0, 0))
+            assert conv.conv3d_wgrad.launches_by_mode == (
+                {conv.WGRAD_MODE: wgrad} if route == "kernels" else {})
             losses[route].append(metrics["loss"].item())
     assert fprop > 0 and wgrad > 0
     assert np.isfinite(losses["kernels"]).all()

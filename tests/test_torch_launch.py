@@ -84,7 +84,8 @@ LAUNCH_CASES = {
         lambda x: conv._conv_cuda(x, torch.randn(64, 8, 3, 3, 3),
                                   torch.randn(64))),
     "conv3d_wgrad": (
-        conv.conv3d_wgrad, "f32", [X, DY], (0, 1), 2, (1, 8, 64, 2, 4, 8, 1),
+        conv.conv3d_wgrad, "wgmma", [X, DY], (0, 1), 2,
+        (1, 8, 64, 2, 4, 8, 1),
         conv._wgrad_cuda),
 }
 
