@@ -112,12 +112,31 @@ class ServingProgram(nn.Module):
 
 
 def _to_card(planes, device) -> list:
-    """The request's planes as tensors on `device`, each copy done before
-    it returns (a pageable host copy blocks the host), inside the span
-    `hupr.serve.h2d`; counts the bytes that came from host memory."""
+    """The request's planes as tensors on `device`, inside the span
+    `hupr.serve.h2d`; counts the bytes that came from host memory.
+
+    On a card each plane in host memory is copied by the host's intra-op
+    threads into a pinned block of torch's caching host allocator, and the
+    block's copy to the card is queued on the current stream, so one
+    plane's DMA runs while the host stages the next. Every byte is read
+    from the caller's memory before it returns; the allocator hands a
+    block out again only once the copy that reads it has run. Planes
+    already on the card pass through; on the CPU a plane is
+    `torch.as_tensor`'s copy."""
     with profiling.annotate("hupr.serve.h2d"):
         profiling.count_h2d(*planes)
-        return [torch.as_tensor(x, device=device) for x in planes]
+        if torch.device(device).type != "cuda":
+            return [torch.as_tensor(x, device=device) for x in planes]
+        return [_staged(x, device) for x in planes]
+
+
+def _staged(x, device):
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        return torch.as_tensor(x, device=device)
+    host = torch.as_tensor(x)
+    pinned = torch.empty(host.shape, dtype=host.dtype, pin_memory=True)
+    pinned.copy_(host)
+    return pinned.to(device, non_blocking=True)
 
 
 def _sharded_serving(program: ServingProgram, mesh):

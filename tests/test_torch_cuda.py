@@ -1166,3 +1166,109 @@ def test_exported_f32_artifact_equals_live_serving_bit_for_bit(cuda,
     torch.cuda.synchronize()
     assert conv.conv3d_3x3x3.launches == 32
     assert torch.equal(maxv, live[1]) and torch.equal(pred, live[0])
+
+
+# ------------------------- a served request's copy-in (engine/pipeline.py)
+
+# a served plane's frame: (RX, chirps, ADC)
+_PLANE_FRAME = (4, 192, 256)
+
+
+def _host_planes(kind, dtype, frames, seed, frame=_PLANE_FRAME):
+    """Four distinct planes of `frames` frames in pageable host memory,
+    numpy arrays or CPU tensors."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    planes = [rng.integers(-300, 300, (frames, *frame)).astype(dtype)
+              for _ in range(4)]
+    return planes if kind == "numpy" else [torch.from_numpy(p)
+                                           for p in planes]
+
+
+@pytest.mark.parametrize("kind", ["numpy", "torch"])
+@pytest.mark.parametrize("dtype", ["int16", "float32"])
+@pytest.mark.parametrize("frames", [32, 13, 1])
+def test_copy_in_equals_as_tensor(cuda, kind, dtype, frames):
+    """_to_card at a served plane's frame: each plane bit-equal to
+    torch.as_tensor(plane, device='cuda'), dtype and shape kept, compared
+    on the current stream with no synchronisation in between; the
+    caller's planes zeroed as soon as the call returns change nothing on
+    the card."""
+    import numpy as np
+
+    from hupr_tpu_torch.engine.pipeline import _to_card
+
+    planes = _host_planes(kind, getattr(np, dtype), frames, seed=frames)
+    want = [torch.as_tensor(p, device=cuda) for p in planes]
+    torch.cuda.synchronize()
+    got = _to_card(planes, cuda)
+    for p in planes:
+        p[:] = 0
+    for g, w in zip(got, want):
+        assert g.device.type == "cuda" and g.dtype == w.dtype
+        assert g.shape == w.shape and torch.equal(g, w)
+
+
+def test_copy_in_passes_card_tensors_through(cuda):
+    """A plane already on the card is handed back as the same tensor; the
+    host planes beside it are copied."""
+    import numpy as np
+
+    from hupr_tpu_torch.engine.pipeline import _to_card
+
+    host = _host_planes("numpy", np.int16, 8, seed=1)
+    card = [torch.as_tensor(p, device=cuda) for p in
+            _host_planes("torch", np.int16, 8, seed=2)]
+    got = _to_card([card[0], host[1], card[2], host[3]], cuda)
+    assert got[0] is card[0] and got[2] is card[2]
+    for i in (1, 3):
+        assert torch.equal(got[i], torch.as_tensor(host[i], device=cuda))
+
+
+def test_copy_in_keeps_requests_staged_back_to_back_apart(cuda):
+    """Five distinct requests staged with no synchronisation between
+    them, so that later planes may take the pinned blocks earlier ones
+    were copied from once their copies have run: each request's card
+    tensors hold its own bytes."""
+    import numpy as np
+
+    from hupr_tpu_torch.engine.pipeline import _to_card
+
+    requests = [_host_planes("numpy", np.int16, 13, seed=10 + s)
+                for s in range(5)]
+    staged = [_to_card(r, cuda) for r in requests]
+    for got, planes in zip(staged, requests):
+        for g, p in zip(got, planes):
+            assert torch.equal(g, torch.as_tensor(p, device=cuda))
+
+
+@pytest.mark.parametrize("compute", ["float32", "bfloat16"])
+def test_served_requests_equal_the_pageable_copy_bit_for_bit(cuda, compute):
+    """make_e2e_infer, whose requests go through _to_card, against the same
+    program on planes copied by torch.as_tensor (the pageable copy it
+    replaced), at the kernels' widths (numFilters 32) on the full capture
+    (64x64 maps): two distinct 13-frame requests served back to back and
+    the first again, each one's tensors dropped before the next: bit-equal
+    keypoints and maxvals, so nothing of one request leaks into the
+    next."""
+    import numpy as np
+
+    from hupr_tpu_torch.engine.pipeline import ServingProgram, make_e2e_infer
+    from hupr_tpu_torch.models.hupr import HuPRNet
+    from hupr_tpu_torch.ops.dsp import RadarParams
+    from hupr_tpu_torch.utils.synthetic import synthetic_state_dict
+
+    model = HuPRNet(num_filters=32, heatmap_size=64, attn_impl="pallas",
+                    compute_dtype=getattr(torch, compute))
+    state = synthetic_state_dict(model, seed=0, scale=0.03)
+    run = make_e2e_infer(model, state, RadarParams(), duration=13)
+    program = ServingProgram(model, RadarParams(), duration=13).eval()
+    a, b = (_host_planes("numpy", np.int16, 13, seed=s) for s in (20, 21))
+    got = [run(*planes) for planes in (a, b, a)]
+    with torch.inference_mode():
+        want = [program(*(torch.as_tensor(p, device=cuda) for p in planes))
+                for planes in (a, b, a)]
+    for (p, m), (pw, mw) in zip(got, want):
+        assert torch.equal(p, pw) and torch.equal(m, mw)
+    assert not torch.equal(got[0][1], got[1][1])
